@@ -1,0 +1,489 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/tpukzg_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # one card, no arguments
+
+Phases, each printed on its own line:
+  1. the card (nvidia-smi name and power limit) and torch's CUDA version;
+  2. the kernels built from csrc/ (nvcc), with the build seconds;
+  3. B1 montmul (Fp, Fr; 2^20 lanes) and B2 ec_add (2^16 lanes) against
+     their plain tensor versions;
+  4. the main path: verify_blob_kzg_proof_batch on the n=4096 SRS and the
+     bench fixtures — a k=8 warm-up, k=256 (True, launch counts taken
+     around this run alone), k=256 with one tampered proof byte (False)
+     and k=256 with two proofs swapped (False, decided by the pairing);
+     then one more k=256 verify with its tensor ops counted, and one
+     under torch.profiler for the device's busy share;
+  5. B3 bucket scan and B4 fraction tree against their plain versions on
+     the very inputs the k=256 run gave them (one z moved in-domain);
+  6. one JSON line of kernel numbers, then the result line.
+Any failure exits non-zero before the result line.  The script never
+falls back to the CPU and imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
+
+# Peak rates of one H100 SXM (data sheet): HBM3 bytes/s, and the 67 TFLOP/s
+# float32 rate outside the tensor cores, taken as the ceiling for 32-bit
+# integer multiply-adds (one multiply-add = 2 operations).
+HBM_BYTES_S = 3.35e12
+OPS_S = 67e12
+# A 32x32->64-bit word product is two multiply-adds (low and high half).
+OPS_PER_WORD_PRODUCT = 4
+
+
+def montmul_ops(words: int) -> int:
+    """CIOS: a*b and m*p (words^2 each) plus m (words) word products."""
+    return (2 * words * words + words) * OPS_PER_WORD_PRODUCT
+
+
+EC_ADD_OPS = 12 * montmul_ops(12)
+REPS = 10          # timed launches per kernel (median reported)
+
+
+def bound_ms(nbytes: float, ops: float):
+    tb = nbytes / HBM_BYTES_S * 1e3
+    to = ops / OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def say(*a):
+    print(*a, flush=True)
+
+
+class Fail(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise Fail(msg)
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    fn()                                    # warm
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def count_dispatch(torch, fn) -> int:
+    """Tensor ops dispatched while fn runs (the eager path's launch count,
+    roughly one device kernel each), plus the port's own launches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from tpukzg_torch.kernels import _build
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    before = sum(_build.launches.values())
+    with Count():
+        fn()
+    return Count.n + sum(_build.launches.values()) - before
+
+
+def device_busy(torch, fn):
+    """One run of fn under torch.profiler, device activity only ->
+    (wall s, device-busy s, device kernels, top five by device time).
+    Busy is the union of the traced device intervals."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s, t = e.time_range.start, e.time_range.end
+        spans.append((s, t))
+        by_name[e.name] += t - s
+    busy, reach = 0.0, float("-inf")
+    for s, t in sorted(spans):
+        if t > reach:
+            busy += t - max(s, reach)
+            reach = t
+    top = [(name[:60], round(us * 1e-3, 3))
+           for name, us in by_name.most_common(5)]
+    return wall, busy * 1e-6, len(spans), top
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise Fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def point_pool(torch, setup):
+    """All SRS points (Lagrange and monomial), limb-major (24, 2n)."""
+    return tuple(torch.cat([a, b], 0).movedim(-1, 0).contiguous()
+                 for a, b in zip(setup.lagrange_g1, setup.monomial_g1))
+
+
+# ---------------------------------------------------------------------------
+# kernel checks
+# ---------------------------------------------------------------------------
+
+
+def check_montmul(torch, field, lanes: int, gen, reps: int):
+    from tpukzg_torch.kernels import montmul as mm
+    L = field.L
+    dev = torch.device("cuda")
+
+    def rand_elems():
+        x = torch.randint(0, 1 << 16, (L, lanes), generator=gen, device=dev,
+                          dtype=torch.int32)
+        x[L - 1] = torch.randint(0, int(field.mod_limbs[-1]), (lanes,),
+                                 generator=gen, device=dev, dtype=torch.int32)
+        return x
+
+    a, b = rand_elems(), rand_elems()
+    special = [torch.full((L,), 0xFFFF, dtype=torch.int32, device=dev),
+               torch.as_tensor(field.from_int(field.modulus - 1), device=dev),
+               torch.zeros(L, dtype=torch.int32, device=dev),
+               torch.as_tensor(field.from_int(1), device=dev)]
+    for i, s in enumerate(special):
+        a[:, i] = s
+        b[:, len(special) + i] = s
+        a[:, 2 * len(special) + i] = s
+        b[:, 2 * len(special) + i] = special[-1 - i]
+    got = mm.montmul(a, b, field, limb_dim=0)
+    from tpukzg_torch.field.mont import FP_PLAIN, FR_PLAIN
+    plain_field = FP_PLAIN if field.name == "Fp" else FR_PLAIN
+    want = mm.montmul_plain(a, b, plain_field, limb_dim=0)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max().item())
+    check(err == 0, f"montmul {field.name}: kernel != plain (max err {err})")
+    ms = cuda_ms(torch, lambda: mm.montmul(a, b, field, limb_dim=0), reps)
+    pms = cuda_ms(torch, lambda: mm.montmul_plain(a, b, plain_field,
+                                                 limb_dim=0), 1)
+    words = L // 2
+    bms, by = bound_ms(3 * lanes * L * 4, lanes * montmul_ops(words))
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, shape=[L, lanes],
+                check=f"bit-exact on {lanes} lanes incl. all-0xFFFF, p-1, 0")
+
+
+def check_ec_add(torch, pool, lanes: int, gen, reps: int):
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
+    from tpukzg_torch.field.limb_major import FP_LM_PLAIN
+    from tpukzg_torch.kernels import ec
+    dev = torch.device("cuda")
+    npool = pool[0].shape[1]
+    i1 = torch.randint(0, npool, (lanes,), generator=gen, device=dev)
+    i2 = torch.randint(0, npool, (lanes,), generator=gen, device=dev)
+    p = [c[:, i1].clone() for c in pool]
+    q = [c[:, i2].clone() for c in pool]
+    inf = G1_LM_PLAIN.inf((1,), dev)
+    for c in range(3):
+        q[c][:, 0] = p[c][:, 0]                        # P + P
+        q[c][:, 1] = p[c][:, 1]                        # P + (-P)
+        p[c][:, 2] = inf[c][:, 0]                      # inf + Q
+        q[c][:, 3] = inf[c][:, 0]                      # P + inf
+        p[c][:, 4] = inf[c][:, 0]                      # inf + inf
+        q[c][:, 4] = inf[c][:, 0]
+    q[1][:, 1] = FP_LM_PLAIN.neg(p[1][:, 1:2])[:, 0]
+    p, q = tuple(p), tuple(q)
+    got = ec.ec_add(p, q)
+    want = ec.ec_add_plain(p, q, FP_LM_PLAIN)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max().item())
+              for g, w in zip(got, want))
+    same = G1_LM_PLAIN.eq(got, want)
+    check(bool(same.all().item()), "ec_add: kernel != plain after "
+          f"normalisation in {int((~same).sum().item())} lanes")
+    check(bool(G1_LM_PLAIN.is_inf(tuple(c[:, 1:2] for c in got)).all()),
+          "ec_add: P + (-P) is not infinity")
+    ms = cuda_ms(torch, lambda: ec.ec_add(p, q), reps)
+    pms = cuda_ms(torch, lambda: ec.ec_add_plain(p, q, FP_LM_PLAIN), 1)
+    bms, by = bound_ms(9 * lanes * 24 * 4, lanes * EC_ADD_OPS)
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, shape=[24, lanes],
+                check=f"affine-equal in all {lanes} lanes incl. inf, P+P, "
+                      "P+(-P)")
+
+
+def scan_adds(torch, seg) -> int:
+    """EC adds an inclusive segmented scan needs on these keys: one for
+    each lane whose key equals its left neighbour's."""
+    return int((seg[:, 1:] == seg[:, :-1]).sum().item())
+
+
+def check_bucket(torch, pts, seg, reps: int):
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
+    from tpukzg_torch.kernels import bucket
+    got = bucket._launch(pts, seg)
+    want = bucket.seg_scan_plain(pts, seg)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max().item())
+              for g, w in zip(got, want))
+    same = G1_LM_PLAIN.eq(got, want)
+    check(bool(same.all().item()), "bucket scan: kernel != plain after "
+          f"normalisation in {int((~same).sum().item())} lanes of "
+          f"{tuple(seg.shape)}")
+    ms = cuda_ms(torch, lambda: bucket._launch(pts, seg), reps)
+    pms = cuda_ms(torch, lambda: bucket.seg_scan_plain(pts, seg), 1)
+    g, n = seg.shape
+    adds = scan_adds(torch, seg)
+    bms, by = bound_ms(6 * 24 * 4 * g * n + 4 * g * n, adds * EC_ADD_OPS)
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, adds=adds, shape=[24, g, n])
+
+
+def check_fractree(torch, evals, z, roots, plan, reps: int):
+    from tpukzg_torch.field.mont import FR_PLAIN
+    from tpukzg_torch.kernels import fractree
+    from tpukzg_torch.poly.poly import _fraction_merge
+    n_inv = torch.as_tensor(plan.n_inv, device=evals.device)
+    z = z.clone()
+    z[0] = roots[5]                                   # in-domain z = w^5
+
+    def plain():
+        a, b = fractree.fractree_partials_plain(evals, z, roots)
+        return FR_PLAIN.mul(_fraction_merge(a, b, FR_PLAIN), n_inv)
+
+    a, b = fractree.fractree_partials(evals, z, roots)
+    got = FR_PLAIN.mul(_fraction_merge(a, b, FR_PLAIN), n_inv)
+    want = plain()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max().item())
+    check(err == 0, f"fractree: y differs from plain (max err {err})")
+    check(bool((got[0] == evals[0, 5]).all().item()),
+          "fractree: in-domain y != e_m")
+    ms = cuda_ms(torch, lambda: fractree.fractree_partials(evals, z, roots),
+                 reps)
+    pms = cuda_ms(torch, plain, 1)
+    k, n, _ = evals.shape
+    chunks = n // min(n, fractree.CHUNK)
+    muls = k * (n + 3 * (n - chunks))
+    bms, by = bound_ms(k * n * 64 + n * 64 + k * 64 + 2 * k * chunks * 64,
+                       muls * montmul_ops(8))
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, shape=[k, n, 16],
+                check="y bit-exact, one in-domain z")
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        say("FAIL: torch.cuda.is_available() is false; this script needs a "
+            "CUDA card")
+        return 1
+    import tpukzg_torch
+    from tpukzg_torch.kernels import _build, bucket, fractree
+    from tpukzg_torch.kzg.fixtures import load_triples
+    from tpukzg_torch.field.mont import FP, FR
+    assert "jax" not in sys.modules and "tpukzg" not in sys.modules
+
+    # 1. the card
+    card = card_line()
+    say(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.lib()
+    say(f"[build] {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {_build.build_info.get('seconds', 0.0):.1f} s) "
+        f"-> {os.path.relpath(_build.build_info['path'], REPO)}")
+    for line in _build.build_info.get("log", "").splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            say("[ptxas]", line.strip())
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0x5EED)
+    results = {}
+
+    # 3. B1, B2
+    for field in (FP, FR):
+        r = check_montmul(torch, field, 1 << 20, gen, REPS)
+        results["montmul_" + field.name.lower()] = r
+        say(f"[B1 montmul {field.name}] ok, {r['check']}: {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms)")
+
+    setup_t0 = time.perf_counter()
+    ts = tpukzg_torch.generate_insecure_setup(0xDEADBEEF, 4096)
+    say(f"[setup] n=4096 SRS on {ts.device} in "
+        f"{time.perf_counter() - setup_t0:.2f} s")
+    pool = point_pool(torch, ts.setup)
+    r = check_ec_add(torch, pool, 1 << 16, gen, REPS)
+    results["ec_add"] = r
+    say(f"[B2 ec_add] ok, {r['check']}: {r['ms']:.4f} ms "
+        f"(plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms)")
+
+    # 4. the main path
+    k_main = 256
+    blobs, cs, pfs = load_triples(4096, 16, k_main)
+    ts.blob.timing = True
+    t0 = time.perf_counter()
+    ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs[:8], cs[:8], pfs[:8],
+                                                  ts)
+    say(f"[slice k=8 warm-up] {ok} in {time.perf_counter() - t0:.2f} s "
+        f"phases {json.dumps({k: round(v, 4) for k, v in ts.blob.last_phases.items()})}")
+    check(ok is True, "k=8 warm-up did not verify")
+
+    captured = {}
+    orig_launch, orig_ft = bucket._launch, fractree.fractree_partials
+
+    def rec_launch(pts, seg):
+        captured.setdefault(("bucket", tuple(seg.shape)), (pts, seg))
+        return orig_launch(pts, seg)
+
+    def rec_ft(evals, z, roots):
+        captured.setdefault("fractree", (evals, z, roots))
+        return orig_ft(evals, z, roots)
+
+    bucket._launch, fractree.fractree_partials = rec_launch, rec_ft
+    try:
+        _build.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, pfs, ts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+    finally:
+        bucket._launch, fractree.fractree_partials = orig_launch, orig_ft
+    phases = dict(ts.blob.last_phases)
+    say(f"[slice k={k_main}] {ok} in {wall:.3f} s = "
+        f"{k_main / wall:.2f} verifications/s; phases (s) "
+        f"{json.dumps({k: round(v, 4) for k, v in phases.items()})}")
+    say(f"[slice k={k_main}] kernel launches {json.dumps(launches)}")
+    check(ok is True, f"k={k_main} batch did not verify")
+
+    bad = bytearray(pfs[k_main // 2])
+    bad[13] ^= 4
+    t0 = time.perf_counter()
+    ok_bad = tpukzg_torch.verify_blob_kzg_proof_batch(
+        blobs, cs, pfs[:k_main // 2] + [bytes(bad)] + pfs[k_main // 2 + 1:],
+        ts)
+    say(f"[slice k={k_main} tampered proof {k_main // 2}] {ok_bad} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(ok_bad is False, "tampered batch did not fail")
+    swapped = [pfs[1], pfs[0]] + pfs[2:]
+    t0 = time.perf_counter()
+    ok_swap = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, swapped, ts)
+    swap_phases = dict(ts.blob.last_phases)
+    say(f"[slice k={k_main} proofs 0 and 1 swapped] {ok_swap} in "
+        f"{time.perf_counter() - t0:.2f} s; phases (s) "
+        f"{json.dumps({k: round(v, 4) for k, v in swap_phases.items()})}")
+    check(ok_swap is False, "batch with swapped proofs did not fail")
+    check("fold_msm" in swap_phases and "pairing" in swap_phases,
+          "batch with swapped proofs was not decided by the pairing")
+    ops = count_dispatch(torch, lambda: tpukzg_torch.verify_blob_kzg_proof_batch(
+        blobs, cs, pfs, ts))
+    say(f"[slice k={k_main}] one more verify, counted: {ops} tensor ops "
+        "dispatched to the card (kernel launches of the port included)")
+    wall_p, busy, n_dev, top = device_busy(
+        torch, lambda: tpukzg_torch.verify_blob_kzg_proof_batch(
+            blobs, cs, pfs, ts))
+    if n_dev:
+        say(f"[slice k={k_main}] one more verify, profiled: {n_dev} device "
+            f"kernels busy {busy:.4f} s of {wall_p:.3f} s wall "
+            f"({100 * busy / wall_p:.1f} %; unprofiled wall {wall:.3f} s); "
+            f"top device ms {json.dumps(top)}")
+    else:
+        say(f"[slice k={k_main}] device busy share not measured: the "
+            "profiler trace holds no device events")
+
+    # 5. B3, B4 on the main path's own inputs
+    seg_key = [key for key in captured if key != "fractree"]
+    check(len(seg_key) == 2, f"bucket scan inputs captured: {seg_key}")
+    parts = []
+    for key in sorted(seg_key, key=lambda s: -s[1][1]):
+        pts, seg = captured[key]
+        r = check_bucket(torch, pts, seg, REPS)
+        parts.append(r)
+        say(f"[B3 bucket scan {r['shape']}] ok, affine-equal in every lane: "
+            f"{r['ms']:.3f} ms (plain {r['plain_ms']:.1f} ms, "
+            f"bound {r['bound_ms']:.4f} ms, {r['adds']} adds)")
+    results["bucket_scan"] = dict(
+        max_abs_err=max(p["max_abs_err"] for p in parts),
+        ms=sum(p["ms"] for p in parts),
+        plain_ms=sum(p["plain_ms"] for p in parts),
+        bound_ms=sum(p["bound_ms"] for p in parts),
+        bound_by="operations" if all(p["bound_by"] == "operations"
+                                     for p in parts) else "bytes",
+        shape=[p["shape"] for p in parts],
+        check="segmented and suffix (single-segment) scans affine-equal "
+              "in every lane")
+    evals, z, roots = captured["fractree"]
+    r = check_fractree(torch, evals, z, roots, ts.setup.plan, REPS)
+    results["fractree"] = r
+    say(f"[B4 fractree {r['shape']}] ok, {r['check']}: {r['ms']:.3f} ms "
+        f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms)")
+
+    # 6. report
+    meta = {
+        "montmul_fp": ("src/tpukzg_torch/csrc/montmul.cu",
+                       "src/tpukzg/pallas/montmul.py:133"),
+        "montmul_fr": ("src/tpukzg_torch/csrc/montmul.cu",
+                       "src/tpukzg/pallas/montmul.py:133"),
+        "ec_add": ("src/tpukzg_torch/csrc/ec.cu",
+                   "src/tpukzg/pallas/ec.py:71"),
+        "bucket_scan": ("src/tpukzg_torch/csrc/bucket.cu",
+                        "src/tpukzg/pallas/bucket.py:117"),
+        "fractree": ("src/tpukzg_torch/csrc/fractree.cu",
+                     "src/tpukzg/pallas/fractree.py:51"),
+    }
+    kernels = []
+    for name, (src, repl) in meta.items():
+        r = results[name]
+        n_launch = int(launches.get(name, 0))
+        check(n_launch > 0, f"{name} was not launched on the main path")
+        kernels.append(dict(name=name, route="cuda", source=src,
+                            replaces=repl, launches=n_launch,
+                            max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=None,
+                            shape=r["shape"], check=r.get("check", "")))
+    say(json.dumps({"kernels": kernels}))
+    say(f"[card] {card}")
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        rc = main()
+    except Fail as e:
+        print(f"FAIL: {e}", flush=True)
+        rc = 1
+    except Exception:                        # noqa: BLE001 - report, exit 1
+        traceback.print_exc()
+        rc = 1
+    sys.exit(rc)

@@ -1,0 +1,43 @@
+"""Public API, c-kzg-4844-shaped (counterpart of ``tpukzg/api.py``).
+
+    ts = tpukzg_torch.generate_insecure_setup(tau, n)         # on the card
+    ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, pfs, ts)
+
+Every entry point runs on the card unless `device` names another one;
+with no card and no device given it raises.
+"""
+
+from __future__ import annotations
+
+from tpukzg_torch.kzg.blob import BlobKzg as _BlobKzg
+from tpukzg_torch.kzg.core import Kzg as _Kzg
+from tpukzg_torch.kzg.setup import Setup as _Setup
+
+
+class TrustedSetup:
+    """SRS on one torch device, with its KZG and blob engines."""
+
+    def __init__(self, setup: _Setup):
+        self.setup = setup
+        self.device = setup.device
+        self.kzg = _Kzg(setup)
+        self.blob = _BlobKzg(self.kzg)
+        self.n = setup.n
+        self.bytes_per_blob = self.blob.bytes_per_blob
+
+
+def generate_insecure_setup(tau: int, n: int, device=None) -> TrustedSetup:
+    """The cached dev SRS of (tau, n) — INSECURE by construction."""
+    return TrustedSetup(_Setup.generate_insecure(tau, n, device=device))
+
+
+def load_setup_file(path: str, device=None) -> TrustedSetup:
+    """Load a layout-v2 .npz SRS written by the JAX package."""
+    return TrustedSetup(_Setup.load(path, device))
+
+
+def verify_blob_kzg_proof_batch(blobs, commitment_bytes_list,
+                                proof_bytes_list, ts: TrustedSetup) -> bool:
+    return ts.blob.verify_blob_kzg_proof_batch(
+        blobs, commitment_bytes_list, proof_bytes_list)
+

@@ -1,0 +1,99 @@
+"""Limb-major complete projective G1 group law (y^2 = x^3 + 4).
+
+Counterpart of ``tpukzg/curve/weierstrass_lm.py`` (and of
+``curve/weierstrass.py:_normalize``).  Coordinates are (L, *batch) int32
+Montgomery limbs.  ``add`` goes through the ec_add kernel on the card
+(``kernels/ec.py``); over a plain field it is the tensor formula.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpukzg_torch.field.limb_major import FieldLM, FP_LM, FP_LM_PLAIN
+from tpukzg_torch.kernels import ec as _ec
+from tpukzg_torch.kernels.ec import _bmul
+
+
+class CurveLM:
+    def __init__(self, field: FieldLM, b3_small: int = 12):
+        self.F = field
+        self.b3_small = b3_small
+
+    def inf(self, batch_shape=(), device="cpu"):
+        F = self.F
+        one = torch.as_tensor(F.one_np, device=device).reshape(
+            (F.L,) + (1,) * len(batch_shape)).expand((F.L,) + tuple(batch_shape))
+        zero = torch.zeros((F.L,) + tuple(batch_shape), dtype=torch.int32,
+                           device=device)
+        return (zero, one.contiguous(), zero)
+
+    def select(self, mask, p, q):
+        return tuple(self.F.select(mask, a, b) for a, b in zip(p, q))
+
+    def is_inf(self, p):
+        return self.F.is_zero(p[2])
+
+    def add(self, p, q):
+        if self.F.params.plain:
+            return _ec.ec_add_plain(p, q, self.F)
+        return _ec.ec_add(p, q)
+
+    def double(self, p):
+        """RCB15 Alg. 9 (a = 0)."""
+        F = self.F
+        X, Y, Z = p
+        t0, t1, t2, t3 = _bmul(F, [(Y, Y), (Y, Z), (Z, Z), (X, Y)])
+        z8 = F.mul_small(t0, 8)
+        t2 = F.mul_small(t2, self.b3_small)
+        t6 = F.sub(t0, F.mul_small(t2, 3))
+        y3t = F.add(t0, t2)
+        m0, m1, m2, m3 = _bmul(F, [(t2, z8), (t1, z8), (t6, y3t), (t6, t3)])
+        return (F.add(m3, m3), F.add(m2, m0), m1)
+
+    def neg(self, p):
+        X, Y, Z = p
+        return (X, self.F.neg(Y), Z)
+
+    def eq(self, p, q):
+        F = self.F
+        a, b, c, d = _bmul(F, [(p[0], q[2]), (q[0], p[2]),
+                               (p[1], q[2]), (q[1], p[2])])
+        same = F.eq(a, b) & F.eq(c, d)
+        pi, qi = self.is_inf(p), self.is_inf(q)
+        return torch.where(pi | qi, pi == qi, same)
+
+    def is_on_curve(self, p):
+        """3 Y^2 Z == 3 X^3 + 3b Z^3."""
+        F = self.F
+        y2, x2, z2 = _bmul(F, [(p[1], p[1]), (p[0], p[0]), (p[2], p[2])])
+        y2z, x3, z3 = _bmul(F, [(y2, p[2]), (x2, p[0]), (z2, p[2])])
+        lhs = F.mul_small(y2z, 3)
+        rhs = F.add(F.mul_small(x3, 3), F.mul_small(z3, self.b3_small))
+        return F.eq(lhs, rhs) | self.is_inf(p)
+
+    def reduce_sum_lanes(self, pts, axis: int):
+        """Tree-reduce points along batch axis `axis` (raw axis axis+1)."""
+        pts = tuple(c.movedim(axis + 1, 1) for c in pts)
+        n = pts[0].shape[1]
+        while n > 1:
+            if n % 2 == 1:
+                pad = self.inf((1,) + tuple(pts[0].shape[2:]), pts[0].device)
+                pts = tuple(torch.cat([c, i], 1)
+                            for c, i in zip(pts, pad))
+                n += 1
+            half = n // 2
+            pts = self.add(tuple(c[:, :half] for c in pts),
+                           tuple(c[:, half:] for c in pts))
+            n = half
+        return tuple(c[:, 0] for c in pts)
+
+    def normalize(self, p):
+        """-> (x, y, is_inf) affine Montgomery; infinity -> (0, 0, True)."""
+        zi = self.F.inv(p[2])
+        x, y = _bmul(self.F, [(p[0], zi), (p[1], zi)])
+        return x, y, self.is_inf(p)
+
+
+G1_LM = CurveLM(FP_LM)
+G1_LM_PLAIN = CurveLM(FP_LM_PLAIN)

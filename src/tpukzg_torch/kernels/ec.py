@@ -1,0 +1,87 @@
+"""B2: complete projective G1 add (RCB15 Alg. 7, a = 0, b3 = 12).
+
+Replaces the device function ``tpukzg/pallas/ec.py::ec_add`` (used
+inside the bucket-scan kernel).  Here it is the ``__device__`` function
+``ec_add`` of ``csrc/ec.cuh``, shared by the bucket-scan kernel, plus a
+thin elementwise launcher (``csrc/ec.cu``) so every lane can be checked
+alone and so the curve code's adds on the card take one launch.
+
+The plain version is the same formula on tensors: 12 field products
+issued as two batched products of 6, and the add_mod / sub_mod /
+mul_small_mod steps of ``pallas/ec.py:22-68``.  Field results are
+canonical, so kernel and plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpukzg_torch.field.limb_major import FP_LM_PLAIN
+from tpukzg_torch.field.mont import I32
+from tpukzg_torch.kernels import _build
+
+
+def _bmul(F, pairs):
+    lhs = torch.stack(torch.broadcast_tensors(*[a for a, _ in pairs]), 1)
+    rhs = torch.stack(torch.broadcast_tensors(*[b for _, b in pairs]), 1)
+    prod = F.mul(lhs, rhs)
+    return [prod[:, i] for i in range(len(pairs))]
+
+
+def ec_add_plain(p, q, F):
+    """RCB15 Alg. 7 on limb-major coords (L, *batch) over field ops F."""
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    t0, t1, t2, t3, t4, t5 = _bmul(F, [
+        (X1, X2), (Y1, Y2), (Z1, Z2),
+        (F.add(X1, Y1), F.add(X2, Y2)),
+        (F.add(Y1, Z1), F.add(Y2, Z2)),
+        (F.add(X1, Z1), F.add(X2, Z2)),
+    ])
+    t3 = F.sub(t3, F.add(t0, t1))
+    t4 = F.sub(t4, F.add(t1, t2))
+    t5 = F.sub(t5, F.add(t0, t2))
+    t0 = F.mul_small(t0, 3)
+    t2 = F.mul_small(t2, 12)
+    z3 = F.add(t1, t2)
+    t1 = F.sub(t1, t2)
+    y3 = F.mul_small(t5, 12)
+    m0, m1, m2, m3, m4, m5 = _bmul(F, [
+        (t4, y3), (t3, t1), (y3, t0), (t1, z3), (t0, t3), (z3, t4),
+    ])
+    return (F.sub(m1, m0), F.add(m3, m2), F.add(m5, m4))
+
+
+_fn = None
+
+
+def ec_add(p, q):
+    """p + q on limb-major (X, Y, Z) coords of (24, *batch).
+    CPU tensors -> plain version; CUDA tensors -> the elementwise kernel."""
+    coords = list(p) + list(q)
+    devs = {c.device for c in coords}
+    if len(devs) != 1:
+        raise ValueError(f"ec_add: tensors on several devices {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return ec_add_plain(tuple(p), tuple(q), FP_LM_PLAIN)
+    if dev.type != "cuda":
+        raise ValueError(f"ec_add: unsupported device {dev}")
+    coords = torch.broadcast_tensors(*coords)
+    shape = coords[0].shape
+    if shape[0] != 24:
+        raise ValueError(f"ec_add: limb axis of {tuple(shape)} is not 24")
+    coords = [c.to(I32).contiguous() for c in coords]
+    out = [torch.empty(shape, dtype=I32, device=dev) for _ in range(3)]
+    n = coords[0].numel() // 24
+    if n == 0:
+        return tuple(out)
+    es, ls = 1, n                                  # element i, limb j: i + j n
+    global _fn
+    if _fn is None:
+        _fn = _build.fn("tpukzg_ec_add", "ppppppppplllp")
+    err = _fn(*[o.data_ptr() for o in out], *[c.data_ptr() for c in coords],
+              n, es, ls, _build.stream_ptr(dev))
+    _build.check(err, "tpukzg_ec_add")
+    _build.launches["ec_add"] += 1
+    return tuple(out)

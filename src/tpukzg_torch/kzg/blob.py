@@ -1,0 +1,120 @@
+"""EIP-4844-shaped blob verification over bytes (counterpart of
+``tpukzg/kzg/blob.py:29-58, 88-105, 232-428``), run synchronously.
+
+Blobs are n big-endian 32-byte Fr elements, evaluations on the
+bit-reversed domain.  The host does the Fiat-Shamir hashing; the
+decompression, staging, evaluation, MSM and pairing run on the setup's
+device.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from tpukzg_torch.curve import g1 as g1m
+from tpukzg_torch.field.mont import FR, R_MOD
+from tpukzg_torch.kzg import transcript
+from tpukzg_torch.kzg.core import Kzg
+from tpukzg_torch.poly.poly import barycentric_eval
+
+BYTES_PER_FIELD_ELEMENT = 32
+PHASES = ("decompress", "stage_eval", "fold_msm", "pairing")
+
+_R_BE = [int((R_MOD >> (16 * (15 - i))) & 0xFFFF) for i in range(16)]
+
+
+def stage_blobs(raw, brp):
+    """(k, n, 32) uint8 big-endian blob bytes (a tensor) ->
+    ((k, n, 16) Montgomery natural-order evals, all-in-range flag)."""
+    a = raw.to(torch.int64)
+    limbs_be = (a[..., 0::2] << 8) | a[..., 1::2]         # MSB limb first
+    ok = torch.zeros(limbs_be.shape[:-1], dtype=torch.bool, device=a.device)
+    eq = torch.ones_like(ok)
+    for i in range(16):
+        ok = ok | (eq & (limbs_be[..., i] < _R_BE[i]))
+        eq = eq & (limbs_be[..., i] == _R_BE[i])
+    natural = limbs_be.flip(-1)[:, brp]
+    return FR.to_mont(natural.to(torch.int32)), ok.all()
+
+
+def fr_ints_from_limbs(limbs) -> list[int]:
+    a = np.asarray(limbs.cpu() if torch.is_tensor(limbs) else limbs)
+    return [FR.to_int(row) for row in a.reshape(-1, 16)]
+
+
+class BlobKzg:
+    def __init__(self, kzg: Kzg):
+        self.kzg = kzg
+        self.n = kzg.n
+        self.device = kzg.device
+        self.bytes_per_blob = self.n * BYTES_PER_FIELD_ELEMENT
+        self._brp = torch.as_tensor(kzg.plan.brp, device=self.device)
+        # Seconds of each phase of the last verify, when `timing` is set
+        # (each phase then ends in a device synchronize).
+        self.timing = False
+        self.last_phases: dict = {}
+
+    def _mark(self, name, t0):
+        """Record phase `name` as ending now (after a device sync) when
+        timing is on; returns the start of the next phase."""
+        if not self.timing:
+            return t0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        self.last_phases[name] = t - t0
+        return t
+
+    def verify_blob_kzg_proof_batch(self, blobs, commitment_bytes_list,
+                                    proof_bytes_list) -> bool:
+        k = len(blobs)
+        if not k == len(commitment_bytes_list) == len(proof_bytes_list):
+            raise ValueError("blobs, commitments and proofs differ in count")
+        if k == 0:
+            return True
+        if any(len(b) != self.bytes_per_blob for b in blobs):
+            return False
+        dev = self.device
+        self.last_phases = {}
+        if self.timing and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        try:
+            pts, ok_sub = g1m.decompress_batch(
+                list(commitment_bytes_list) + list(proof_bytes_list), dev)
+        except ValueError:                 # malformed encoding
+            return False
+        c_pts = tuple(c[:k] for c in pts)
+        pi_pts = tuple(c[k:] for c in pts)
+        t = self._mark("decompress", t)
+
+        zs = [transcript.compute_challenge(blobs[i], commitment_bytes_list[i],
+                                           self.n) for i in range(k)]
+        z_can = torch.as_tensor(FR.from_int(zs).reshape(k, 16), device=dev)
+        z_mont = torch.as_tensor(FR.from_int(
+            [(zi << 256) % R_MOD for zi in zs]).reshape(k, 16), device=dev)
+        raw = np.frombuffer(b"".join(blobs), np.uint8).reshape(k, self.n, 32)
+        raw_t = torch.as_tensor(raw.copy()).to(dev)
+        mont, ok_range = stage_blobs(raw_t, self._brp)
+        y_can = FR.from_mont(barycentric_eval(self.kzg.plan, mont, z_mont,
+                                              self.kzg.roots))
+        ys = fr_ints_from_limbs(y_can)     # sync: y feeds the transcript
+        t = self._mark("stage_eval", t)
+        # the verdict is False already: skip the MSM and the pairings
+        if not bool((ok_sub.all() & ok_range).item()):
+            return False
+
+        _, rho_powers = transcript.compute_r_powers(
+            commitment_bytes_list, zs, ys, proof_bytes_list, self.n)
+        rho_can = torch.as_tensor(FR.from_int(rho_powers).reshape(k, 16),
+                                  device=dev)
+        pi_agg, lhs = self.kzg.verify_batch_msm(c_pts, z_can, y_can, pi_pts,
+                                                rho_can)
+        t = self._mark("fold_msm", t)
+        ok = self.kzg.verify_batch_pair(pi_agg, lhs)
+        verdict = bool(ok.item())
+        self._mark("pairing", t)
+        return verdict

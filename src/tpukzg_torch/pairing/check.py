@@ -1,0 +1,35 @@
+"""Multi-pairing product check on precomputed lines (counterpart of
+``tpukzg/pairing/check.py:43-71``).  The pairing is cubed (final
+exponent 3 (p^12 - 1) / r), and a G1 input at infinity contributes one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpukzg_torch.curve import g1 as g1m
+from tpukzg_torch.field.tower import FP12
+from tpukzg_torch.pairing.final_exp import final_exp
+from tpukzg_torch.pairing.miller import miller_loop_lines
+
+
+def miller_product(pairs_with_lines):
+    """prod_i f_i(P_i) before the final exponentiation."""
+    pts = tuple(torch.stack([p[i] for p, _ in pairs_with_lines])
+                for i in range(3))                       # (k, 24) coords
+    xp, yp, is_inf = g1m.normalize(pts)
+    dl = torch.stack([l[0] for _, l in pairs_with_lines])
+    al = torch.stack([l[1] for _, l in pairs_with_lines])
+    fs = miller_loop_lines(xp, yp, dl, al)               # (k, 2, 3, 2, L)
+    fs = FP12.select(is_inf, FP12.one(is_inf.shape, fs.device), fs)
+    f = fs[0]
+    for i in range(1, fs.shape[0]):
+        f = FP12.mul(f, fs[i])
+    return f
+
+
+def pairing_check(pairs_with_lines):
+    """prod_i e(P_i, Q_i)^3 == 1 -> 0-d bool tensor.
+    pairs_with_lines: [(G1 point ((24,) coords), (dbl_lines, add_lines))]."""
+    e = final_exp(miller_product(pairs_with_lines))
+    return FP12.eq(e, FP12.one((), e.device))

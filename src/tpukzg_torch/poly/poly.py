@@ -1,0 +1,40 @@
+"""Evaluation-form barycentric evaluation over Fr (counterpart of
+``tpukzg/poly/poly.py``).
+
+Inversion-free fraction tree:  sum_i e_i w^i / (z - w^i) = N(z) / (z^n - 1)
+and p(z) = N(z) / n, in and out of the domain alike.  The bottom of the
+tree is kernel B4 on the card (``kernels/fractree.py``); the tail folds
+here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpukzg_torch.field.mont import FR
+from tpukzg_torch.kernels import fractree
+
+
+def _fraction_merge(a, b, F=FR):
+    """Fold (..., m, L) fraction pairs to one (..., L) numerator by
+    pairwise merges (a, b) x (a', b') -> (a b' + a' b, b b')."""
+    n = a.shape[-2]
+    while n > 1:
+        al, ar = a[..., 0::2, :], a[..., 1::2, :]
+        bl, br = b[..., 0::2, :], b[..., 1::2, :]
+        prod = F.mul(torch.cat([al, ar, bl], -2), torch.cat([br, bl, br], -2))
+        m = n // 2
+        a = F.add(prod[..., :m, :], prod[..., m:2 * m, :])
+        b = prod[..., 2 * m:, :]
+        n = m
+    return a[..., 0, :]
+
+
+def barycentric_eval(plan, evals, z, roots=None):
+    """p(z) for evaluation-form p: evals (k, n, 16) Montgomery natural
+    order, z (k, 16) Montgomery -> (k, 16) Montgomery."""
+    if roots is None:
+        roots = torch.as_tensor(plan.roots, device=evals.device)
+    a, b = fractree.fractree_partials(evals, z, roots)
+    num = _fraction_merge(a, b)
+    return FR.mul(num, torch.as_tensor(plan.n_inv, device=evals.device))

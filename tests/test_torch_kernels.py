@@ -1,0 +1,132 @@
+"""Each kernel's plain tensor version (src/tpukzg_torch/kernels) against
+the JAX function as the JAX tests run it on the CPU.  Tolerance: exact
+(the plain scans are the reference's `loop` scans).  The kernels
+themselves are held against these plain versions on a card by
+tests/test_torch_cuda.py."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from tpukzg.field.mont import FP as JFP, FR as JFR
+from tpukzg.pallas.montmul import montmul_lm
+from tpukzg_torch.field.mont import FP, FR, FP_PLAIN, FR_PLAIN
+from tpukzg_torch.field.limb_major import FP_LM_PLAIN
+from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
+from tpukzg_torch.kernels import bucket, ec, montmul
+
+from torch_cases import ec_inputs, operands, scan_inputs
+
+# Tiny tensors: one intra-op thread keeps parallel test workers from
+# oversubscribing the cores.
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("fields", [(FP, FP_PLAIN, JFP), (FR, FR_PLAIN, JFR)],
+                         ids=["fp", "fr"])
+def test_montmul_plain_vs_montmul_lm(fields):
+    T, TP, J = fields
+    a, b = operands(T, 11, 32)
+    ref = np.asarray(montmul_lm(a.astype(np.uint32), b.astype(np.uint32), J))
+    got = montmul.montmul_plain(torch.from_numpy(a), torch.from_numpy(b), TP,
+                                limb_dim=0)
+    assert np.array_equal(got.numpy(), ref.astype(np.int32))
+    # the dispatching wrapper takes the plain version for CPU tensors
+    got2 = montmul.montmul(torch.from_numpy(a.T.copy()),
+                           torch.from_numpy(b.T.copy()), T)
+    assert np.array_equal(got2.numpy().T, ref.astype(np.int32))
+
+
+def test_ec_add_plain_vs_pallas_ec():
+    import jax.numpy as jnp
+    from tpukzg.pallas.ec import ec_add as jec_add
+    p, q = ec_inputs()
+    mu = jnp.asarray(np.asarray(JFP.mu_limbs, np.uint32)[:, None])
+    pm = jnp.asarray(np.asarray(JFP.mod_limbs, np.uint32)[:, None])
+    # eager jnp, as the kernel body runs in interpret mode (a jit of the
+    # whole formula costs a minute and a half of XLA:CPU compile)
+    ref = jec_add(tuple(jnp.asarray(c.astype(np.uint32)) for c in p),
+                  tuple(jnp.asarray(c.astype(np.uint32)) for c in q),
+                  mu, pm, 24)
+    tp = tuple(torch.from_numpy(c) for c in p)
+    tq = tuple(torch.from_numpy(c) for c in q)
+    got = ec.ec_add_plain(tp, tq, FP_LM_PLAIN)
+    for g, r in zip(got, ref):
+        assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int32))
+    assert bool(G1_LM_PLAIN.is_inf(tuple(c[:, 1:2] for c in got)).all())
+    assert all(torch.equal(a, b) for a, b in zip(ec.ec_add(tp, tq), got))
+
+
+def test_seg_scan_plain_vs_loop_scan():
+    from tpukzg.curve.weierstrass_lm import G1_LM as JG1
+    from tpukzg.msm.scan import seg_scan as jseg
+    pts, seg = scan_inputs(2, 16, 1)
+    ref = jseg(JG1.add, JG1.select, tuple(c.astype(np.uint32) for c in pts),
+               seg, coord_axis=2, seg_axis=1, impl="loop")
+    got = bucket.seg_scan_plain(tuple(torch.from_numpy(c) for c in pts),
+                                torch.from_numpy(seg))
+    for g, r in zip(got, ref):
+        assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int32))
+
+
+def test_suffix_scan_plain_vs_loop_scan():
+    from tpukzg.curve.weierstrass_lm import G1_LM as JG1
+    from tpukzg.msm.scan import suffix_scan as jsuf
+    pts, _ = scan_inputs(2, 15, 3)
+    ref = jsuf(JG1.add, JG1.select, tuple(c.astype(np.uint32) for c in pts),
+               coord_axis=2, batch_shape=(2, 15), scan_axis_in_batch=1,
+               impl="loop")
+    tp = tuple(torch.from_numpy(c) for c in pts)
+    for got in (bucket.suffix_scan_plain(tp), bucket.suffix_scan(tp)):
+        for g, r in zip(got, ref):
+            assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int32))
+
+
+@pytest.mark.slow
+def test_scans_plain_vs_pallas_scan_tiled():
+    """Against the Pallas bucket scan's CPU path (interpret=True) with
+    128-lane tiles, so a 200-lane row is two tiles joined by the carry:
+    affine-equal, since the carry adds in another order than the loop
+    scan.  `slow`: jitted, XLA:CPU compiles the tile body for over ten
+    minutes, so the JAX side runs op by op (about two minutes)."""
+    import jax
+    from tpukzg.pallas.bucket import seg_scan_pallas, suffix_scan_pallas
+    pts, seg = scan_inputs(1, 200, 4, nkeys=3)
+    with jax.disable_jit():
+        ref_seg = seg_scan_pallas(tuple(c.astype(np.uint32) for c in pts),
+                                  seg, interpret=True, tile=128)
+        ref_suf = suffix_scan_pallas(tuple(c.astype(np.uint32) for c in pts),
+                                     interpret=True, tile=128)
+    tp = tuple(torch.from_numpy(c) for c in pts)
+    for got, ref in ((bucket.seg_scan(tp, torch.from_numpy(seg)), ref_seg),
+                     (bucket.suffix_scan(tp), ref_suf)):
+        ref_t = tuple(torch.from_numpy(np.asarray(c).astype(np.int32))
+                      for c in ref)
+        assert bool(G1_LM_PLAIN.eq(got, ref_t).all())
+
+
+def test_fractree_plain_vs_pallas_fractree():
+    """n=512, k=3 with an in-domain row: y exact against the JAX fraction
+    tree (interpret mode) followed by its _fraction_merge."""
+    import jax.numpy as jnp
+    from tpukzg.ntt.ntt import get_plan as jplan
+    from tpukzg.pallas import fractree as jft
+    from tpukzg.poly.poly import _fraction_merge as jmerge
+    from tpukzg_torch.ntt.ntt import get_plan
+    from tpukzg_torch.poly.poly import barycentric_eval
+    n, k = 512, 3
+    rng = random.Random(5)
+    jp, plan = jplan(n), get_plan(n)
+    evals = FR.to_mont_host([rng.randrange(FR.modulus)
+                             for _ in range(k * n)]).reshape(k, n, 16)
+    zs = [rng.randrange(FR.modulus), plan.roots_int[5], rng.randrange(FR.modulus)]
+    z = FR.to_mont_host(zs)
+    a, b = jft.fractree_partials(evals.astype(np.uint32), z.astype(np.uint32),
+                                 jp.roots, tile=256, interpret=True)
+    ref = np.asarray(JFR.mul(jmerge(jnp.asarray(a), jnp.asarray(b)),
+                             jnp.asarray(jp.n_inv)))
+    got = barycentric_eval(plan, torch.from_numpy(evals), torch.from_numpy(z))
+    assert np.array_equal(got.numpy(), ref.astype(np.int32))
+    assert np.array_equal(got.numpy()[1], evals[1, 5])

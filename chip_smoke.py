@@ -16,7 +16,18 @@ Phases, each printed on its own line:
      under torch.profiler for the device's busy share;
   5. B3 bucket scan and B4 fraction tree against their plain versions on
      the very inputs the k=256 run gave them (one z moved in-domain);
-  6. one JSON line of kernel numbers, then the result line.
+  6. the prover path on the 16 fixture blobs (launch counts taken around
+     each step alone): blob_to_kzg_commitment_batch and
+     compute_blob_kzg_proof_batch byte-equal to the fixture, accepted by
+     verify_blob_kzg_proof_batch; interpolate (iNTT, B5), commit_coeff
+     and open_coeff (NTT, B5) giving the same bytes, and
+     to_evals(interpolate(e)) == e; one in-domain and two out-of-domain
+     openings accepted by Kzg.verify_batch (and one wrong y refused);
+  7. B5 NTT against its plain version on the prover path's own
+     (16, 4096) inputs, both directions, and at n = 2^18 (one seeded
+     polynomial, the multi-pass branch); B3 on one chunk the fixed-base
+     MSM launched (rows of 98,304 lanes);
+  8. one JSON line of kernel numbers, then the result line.
 Any failure exits non-zero before the result line.  The script never
 falls back to the CPU and imports neither JAX nor the JAX package.
 """
@@ -85,6 +96,18 @@ def cuda_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def timed_once(torch, fn):
+    """(fn(), its ms on the card by CUDA events, one run, no warm-up)."""
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
 
 
 def count_dispatch(torch, fn) -> int:
@@ -240,11 +263,21 @@ def scan_adds(torch, seg) -> int:
 
 
 def check_bucket(torch, pts, seg, reps: int):
+    """Kernel against the plain scan, in groups of rows of at most 2^16
+    lanes (a plain scan of one 98,304-lane row holds ~3 GB of int64
+    products at a time)."""
     from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
     from tpukzg_torch.kernels import bucket
     got = bucket._launch(pts, seg)
-    want = bucket.seg_scan_plain(pts, seg)
-    torch.cuda.synchronize()
+    step = max(1, (1 << 16) // seg.shape[1])
+
+    def plain():
+        rows = [bucket.seg_scan_plain(tuple(c[:, r:r + step] for c in pts),
+                                      seg[r:r + step])
+                for r in range(0, seg.shape[0], step)]
+        return tuple(torch.cat([r[i] for r in rows], 1) for i in range(3))
+
+    want, pms = timed_once(torch, plain)
     err = max(int((g.long() - w.long()).abs().max().item())
               for g, w in zip(got, want))
     same = G1_LM_PLAIN.eq(got, want)
@@ -252,7 +285,6 @@ def check_bucket(torch, pts, seg, reps: int):
           f"normalisation in {int((~same).sum().item())} lanes of "
           f"{tuple(seg.shape)}")
     ms = cuda_ms(torch, lambda: bucket._launch(pts, seg), reps)
-    pms = cuda_ms(torch, lambda: bucket.seg_scan_plain(pts, seg), 1)
     g, n = seg.shape
     adds = scan_adds(torch, seg)
     bms, by = bound_ms(6 * 24 * 4 * g * n + 4 * g * n, adds * EC_ADD_OPS)
@@ -291,6 +323,143 @@ def check_fractree(torch, evals, z, roots, plan, reps: int):
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, shape=[k, n, 16],
                 check="y bit-exact, one in-domain z")
+
+
+def check_ntt(torch, x, plan, inverse: bool, reps: int):
+    from tpukzg_torch.kernels import ntt as kntt
+    got = kntt.ntt(x, plan, inverse)
+    want, pms = timed_once(torch, lambda: kntt.ntt_plain(x, plan, inverse))
+    err = int((got.long() - want.long()).abs().max().item())
+    check(err == 0, f"ntt {tuple(x.shape)} inverse={inverse}: kernel != "
+          f"plain (max err {err})")
+    ms = cuda_ms(torch, lambda: kntt.ntt(x, plan, inverse), reps)
+    k, n = x.numel() // (16 * plan.n), plan.n
+    muls = k * (n // 2) * plan.log_n + (k * n if inverse else 0)
+    bms, by = bound_ms(2 * k * n * 64 + (n // 2) * 64 + 64,
+                       muls * montmul_ops(8))
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, shape=[k, n, 16], inverse=inverse)
+
+
+def run_path(torch, fn):
+    """fn() with the kernel counts set to 0 just before and read just
+    after -> (result, wall s, launches by kernel)."""
+    from tpukzg_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(_build.launches)
+
+
+def prover_path(torch, ts, say_path):
+    """Steps 1-3 of the prover slice on the 16 fixture blobs.  Returns
+    (launches by path, captured fixed-base B3 chunk, NTT inputs)."""
+    import tpukzg_torch
+    from tpukzg_torch.curve import g1 as g1m
+    from tpukzg_torch.field.mont import FR, R_MOD
+    from tpukzg_torch.kernels import bucket
+    from tpukzg_torch.kzg import transcript
+    from tpukzg_torch.kzg.fixtures import load_triples
+
+    blobs, cs, pfs = load_triples(ts.n, 16)
+    k, kzg, paths = len(blobs), ts.kzg, {}
+    t0 = time.perf_counter()
+    kzg.table("lag")
+    kzg.table("mono")
+    torch.cuda.synchronize()
+    say(f"[prover tables] lag + mono fixed-base tables (c = "
+        f"{kzg.c_commit}, {kzg.table('lag')[0].shape[1]} windows) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    captured = {}
+    orig = bucket._launch
+
+    def rec(pts, seg):
+        if seg.shape[1] > ts.n:            # W n lanes, not 2^c - 1
+            captured.setdefault("fixed", (pts, seg))
+        return orig(pts, seg)
+
+    bucket._launch = rec
+    try:
+        got_cs, wall, paths["commit_batch"] = run_path(
+            torch, lambda: tpukzg_torch.blob_to_kzg_commitment_batch(blobs,
+                                                                     ts))
+    finally:
+        bucket._launch = orig
+    say_path(f"commit_batch k={k}", wall, paths["commit_batch"])
+    check(got_cs == cs, "commitments differ from the fixture's: "
+          f"{[i for i in range(k) if got_cs[i] != cs[i]]}")
+    got_pfs, wall, paths["proof_batch"] = run_path(
+        torch, lambda: tpukzg_torch.compute_blob_kzg_proof_batch(blobs, cs,
+                                                                 ts))
+    say_path(f"proof_batch k={k}", wall, paths["proof_batch"])
+    check(got_pfs == pfs, "proofs differ from the fixture's: "
+          f"{[i for i in range(k) if got_pfs[i] != pfs[i]]}")
+    ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, got_cs, got_pfs, ts)
+    say(f"[prover] the {k} fixture commitments and proofs reproduced byte "
+        f"for byte; verify_blob_kzg_proof_batch of them: {ok}")
+    check(ok is True, "the port's verify refused its own proofs")
+
+    # step 2: coefficient form through the NTT
+    evals = ts.blob._blob_natural_mont(blobs)
+    zs = [transcript.compute_challenge(blobs[i], cs[i], ts.n)
+          for i in range(k)]
+    z_mont = ts.blob._z_mont(zs)
+    coeff_phases = {}
+
+    def coeff_path():
+        t = time.perf_counter()
+        out = {}
+        for name, fn in (
+                ("interpolate", lambda: kzg.interpolate(evals)),
+                ("to_evals", lambda: kzg.to_evals(out["interpolate"])),
+                ("commit_coeff", lambda: kzg.commit_coeff(out["interpolate"])),
+                ("open_coeff", lambda: kzg.open_coeff(out["interpolate"],
+                                                      z_mont))):
+            out[name] = fn()
+            torch.cuda.synchronize()
+            coeff_phases[name] = round(time.perf_counter() - t, 4)
+            t = time.perf_counter()
+        return out
+
+    out, wall, paths["coeff"] = run_path(torch, coeff_path)
+    say_path(f"coeff path k={k}", wall, paths["coeff"],
+             f" phases (s) {json.dumps(coeff_phases)}")
+    check(torch.equal(out["to_evals"], evals),
+          "to_evals(interpolate(e)) != e")
+    check(g1m.compress_points(out["commit_coeff"]) == cs,
+          "commit_coeff(interpolate(e)) differs from the fixture")
+    check(g1m.compress_points(out["open_coeff"][0]) == pfs,
+          "open_coeff differs from the fixture's proofs")
+    say("[prover] to_evals(interpolate(e)) == e bit for bit; commit_coeff "
+        f"and open_coeff reproduce the {k} commitments and proofs")
+
+    # step 3: one in-domain and two out-of-domain openings, Kzg level
+    roots = ts.setup.plan.roots_int
+    z3 = [roots[5], zs[1], 0x5EED]
+    z3_mont = ts.blob._z_mont(z3)
+    (pi, y), wall, paths["open3"] = run_path(
+        torch, lambda: kzg.open(evals[:3], z3_mont))
+    say_path("open k=3 (z0 = w^5)", wall, paths["open3"])
+    check(torch.equal(y[0], evals[0, 5]), "in-domain y != e_5")
+    c_pts, ok_sub = g1m.decompress_batch(cs[:3], ts.device)
+    check(bool(ok_sub.all().item()), "fixture commitments not in G1")
+    dev = ts.device
+    z_can = torch.as_tensor(FR.from_int(z3), device=dev)
+    y_can = FR.from_mont(y)
+    rho = [pow(0xC0FFEE, i, R_MOD) for i in range(3)]
+    rho_can = torch.as_tensor(FR.from_int(rho), device=dev)
+    ok = bool(kzg.verify_batch(c_pts, z_can, y_can, pi, rho_can).item())
+    y_bad = y_can.clone()
+    y_bad[2, 0] ^= 1
+    bad = bool(kzg.verify_batch(c_pts, z_can, y_bad, pi, rho_can).item())
+    say(f"[prover] Kzg.verify_batch of the three openings: {ok}; with one "
+        f"y changed: {bad}")
+    check(ok and not bad, "Kzg.verify_batch verdicts wrong")
+    ntt_inputs = dict(fwd=out["interpolate"], inv=evals)
+    return paths, captured, ntt_inputs
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +614,55 @@ def main() -> int:
     say(f"[B4 fractree {r['shape']}] ok, {r['check']}: {r['ms']:.3f} ms "
         f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms)")
 
-    # 6. report
+    # 6. the prover path
+    def say_path(name, wall, launches, extra=""):
+        say(f"[prover {name}] {wall:.3f} s; kernel launches "
+            f"{json.dumps(launches)}{extra}")
+
+    paths, cap_fixed, ntt_in = prover_path(torch, ts, say_path)
+    paths["verify"] = launches
+
+    # 7. B5 and the fixed-base B3 on the prover path's own inputs
+    from tpukzg_torch.ntt.ntt import get_plan
+    plan = ts.setup.plan
+    nr = {}
+    for name, x, inv in (("fwd", ntt_in["fwd"], False),
+                         ("inv", ntt_in["inv"], True)):
+        r = check_ntt(torch, x, plan, inv, REPS)
+        nr[name] = r
+        say(f"[B5 ntt {r['shape']} inverse={inv}] ok, bit-exact: "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
+    t0 = time.perf_counter()
+    big = get_plan(1 << 18)
+    say(f"[B5 ntt] n = 2^18 plan on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    lim = torch.randint(0, 1 << 16, (1, 1 << 18, 16), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    lim[..., 15] &= 0x3FFF                     # below 2^254 < r
+    for name, inv in (("fwd_2^18", False), ("inv_2^18", True)):
+        r = check_ntt(torch, lim, big, inv, REPS)
+        nr[name] = r
+        say(f"[B5 ntt {r['shape']} inverse={inv}] ok, bit-exact: "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
+    r = dict(nr["fwd"])
+    r["check"] = ("bit-exact vs plain: (16, 4096) fwd and inv on the "
+                  "prover path's own inputs, (1, 2^18) fwd and inv")
+    r["other_shapes"] = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "shape")}
+                         for k, v in nr.items() if k != "fwd"}
+    results["ntt"] = r
+    check("fixed" in cap_fixed, "no fixed-base scan chunk was captured")
+    pts, seg = cap_fixed["fixed"]
+    r = check_bucket(torch, pts, seg, 3)
+    r["check"] = "affine-equal in every lane of a fixed-base MSM chunk"
+    results["bucket_scan_fixed"] = r
+    say(f"[B3 bucket scan fixed-base {r['shape']}] ok, affine-equal in every "
+        f"lane: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f} ms, bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {r['adds']} adds)")
+
+    # 8. report
     meta = {
         "montmul_fp": ("src/tpukzg_torch/csrc/montmul.cu",
                        "src/tpukzg/pallas/montmul.py:133"),
@@ -457,18 +674,30 @@ def main() -> int:
                         "src/tpukzg/pallas/bucket.py:117"),
         "fractree": ("src/tpukzg_torch/csrc/fractree.cu",
                      "src/tpukzg/pallas/fractree.py:51"),
+        "bucket_scan_fixed": ("src/tpukzg_torch/csrc/bucket.cu",
+                              "src/tpukzg/pallas/bucket.py:117"),
+        "ntt": ("src/tpukzg_torch/csrc/ntt.cu",
+                "src/tpukzg/pallas/ntt.py:99"),
     }
+    # the path whose launches each entry reports; the counter name
+    path_of = {"bucket_scan_fixed": ("commit_batch", "bucket_scan"),
+               "ntt": ("coeff", "ntt")}
     kernels = []
     for name, (src, repl) in meta.items():
         r = results[name]
-        n_launch = int(launches.get(name, 0))
-        check(n_launch > 0, f"{name} was not launched on the main path")
+        path, counter = path_of.get(name, ("verify", name))
+        n_launch = int(paths[path].get(counter, 0))
+        check(n_launch > 0, f"{name} was not launched on the {path} path")
         kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=repl, launches=n_launch,
+                            replaces=repl, launches=n_launch, path=path,
+                            launches_by_path={p: int(c.get(counter, 0))
+                                              for p, c in paths.items()},
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None,
-                            shape=r["shape"], check=r.get("check", "")))
+                            shape=r["shape"], check=r.get("check", ""),
+                            **({"other_shapes": r["other_shapes"]}
+                               if "other_shapes" in r else {})))
     say(json.dumps({"kernels": kernels}))
     say(f"[card] {card}")
     say(json.dumps({"ok": True, "device": {

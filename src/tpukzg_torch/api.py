@@ -1,7 +1,13 @@
 """Public API, c-kzg-4844-shaped (counterpart of ``tpukzg/api.py``).
 
     ts = tpukzg_torch.generate_insecure_setup(tau, n)         # on the card
+    cs = tpukzg_torch.blob_to_kzg_commitment_batch(blobs, ts)
+    pfs = tpukzg_torch.compute_blob_kzg_proof_batch(blobs, cs, ts)
     ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, pfs, ts)
+
+Coefficient-form and field-level calls live on ``ts.kzg`` (``interpolate``,
+``to_evals``, ``commit``, ``commit_coeff``, ``open``, ``open_coeff``,
+``eval_at``).
 
 Every entry point runs on the card unless `device` names another one;
 with no card and no device given it raises.
@@ -34,6 +40,36 @@ def generate_insecure_setup(tau: int, n: int, device=None) -> TrustedSetup:
 def load_setup_file(path: str, device=None) -> TrustedSetup:
     """Load a layout-v2 .npz SRS written by the JAX package."""
     return TrustedSetup(_Setup.load(path, device))
+
+
+def blob_to_kzg_commitment(blob: bytes, ts: TrustedSetup) -> bytes:
+    return ts.blob.blob_to_kzg_commitment(blob)
+
+
+def compute_kzg_proof(blob: bytes, z_bytes: bytes, ts: TrustedSetup):
+    """-> (proof_bytes, y_bytes)."""
+    return ts.blob.compute_kzg_proof(blob, z_bytes)
+
+
+def compute_blob_kzg_proof(blob: bytes, commitment_bytes: bytes,
+                           ts: TrustedSetup) -> bytes:
+    return ts.blob.compute_blob_kzg_proof(blob, commitment_bytes)
+
+
+def blob_to_kzg_commitment_batch(blobs, ts: TrustedSetup) -> list[bytes]:
+    """Commit k blobs in one batched MSM."""
+    return ts.blob.blob_to_kzg_commitment_batch(blobs)
+
+
+def compute_blob_kzg_proof_batch(blobs, commitment_bytes_list,
+                                 ts: TrustedSetup) -> list[bytes]:
+    """Prove k blobs in one batched open."""
+    return ts.blob.compute_blob_kzg_proof_batch(blobs, commitment_bytes_list)
+
+
+def verify_blob_kzg_proof(blob: bytes, commitment_bytes: bytes,
+                          proof_bytes: bytes, ts: TrustedSetup) -> bool:
+    return ts.blob.verify_blob_kzg_proof(blob, commitment_bytes, proof_bytes)
 
 
 def verify_blob_kzg_proof_batch(blobs, commitment_bytes_list,

@@ -43,6 +43,13 @@ def int_to_limbs(x: int, n_limbs: int) -> np.ndarray:
                     dtype=np.int32)
 
 
+def ints_to_limbs(xs, n_limbs: int) -> np.ndarray:
+    """Non-negative ints below 2^(16 n_limbs) -> (len, n_limbs) int32 limbs
+    (through their little-endian bytes: fast for 2^18 values)."""
+    buf = b"".join(int(x).to_bytes(2 * n_limbs, "little") for x in xs)
+    return np.frombuffer(buf, "<u2").reshape(-1, n_limbs).astype(np.int32)
+
+
 def limbs_to_int(limbs) -> int:
     out = 0
     for i, v in enumerate(np.asarray(limbs).tolist()):
@@ -78,29 +85,67 @@ def carry(x, rounds: int = 1):
         hi = x >> B
         top = hi[..., -1]
         cout = top if cout is None else cout + top
-        x = (x & MASK) + F.pad(hi[..., :-1], (1, 0))
+        x = x & MASK
+        x[..., 1:] += hi[..., :-1]
     g = x >> B
-    s = x & MASK
-    k = x.shape[-1]
-    pos = torch.arange(k, device=x.device, dtype=I64)
-    decisive = (g > 0) | (s != MASK)
-    last = torch.cummax(torch.where(decisive, pos, -1), dim=-1).values
-    co = torch.gather(g, -1, last.clamp(min=0)) * (last >= 0)
-    out = (s + F.pad(co[..., :-1], (1, 0))) & MASK
-    return out, cout + co[..., -1]
+    s = x
+    s &= MASK
+    decisive = (g != 0) | (s != MASK)
+    # last decisive position at or below i; where there is none, 0 is
+    # not decisive either, so g[0] = 0 is the right carry
+    last = torch.cummax(torch.where(decisive,
+                                    _index("pos", x.shape[-1], x.device), 0),
+                        dim=-1).values
+    co = torch.gather(g, -1, last)
+    s[..., 1:] += co[..., :-1]
+    s &= MASK
+    return s, cout + co[..., -1]
+
+
+_INDEX: dict = {}
+
+
+def _index(kind: str, k: int, device):
+    """Cached index tensors: "pos" = arange(k); "diag" = i + j over the
+    flattened (i, j) of a k x k outer product; "toeplitz" = the flat
+    position of (i, i + j) in a k x (2k - 1) matrix."""
+    key = (kind, k, str(device))
+    t = _INDEX.get(key)
+    if t is None:
+        r = torch.arange(k, device=device, dtype=I64)
+        if kind == "pos":
+            t = r
+        elif kind == "diag":
+            t = (r[:, None] + r[None, :]).reshape(-1)
+        else:
+            t = (r[:, None] * (2 * k - 1) + r[:, None] + r[None, :]).reshape(-1)
+        t = _INDEX[key] = t
+    return t
 
 
 def cols(a, b, n_cols: int):
     """Column sums of the schoolbook product a*b (int64, trailing limbs):
     (..., L) x (..., L) -> (..., n_cols).  Products are < 2^32 and a column
-    holds at most L of them, so sums stay below 2^37.  The anti-diagonal
-    sums come from one outer product, a pad and a skewing reshape."""
+    holds at most L of them, so sums stay below 2^37: every partial sum is
+    an integer below 2^53, exact in float64 and in any order.
+
+    A constant b (one (L,) row: mu, p) is a product with its (L, 2L-1)
+    Toeplitz matrix, one float64 matmul.  Otherwise the anti-diagonal sums
+    come from one outer product and one ``index_add_`` of its flattened
+    (i, j) onto column i + j."""
     L = a.shape[-1]
-    o = a.unsqueeze(-1) * b.unsqueeze(-2)                  # (..., L, L)
-    lead = o.shape[:-2]
-    o = F.pad(o, (0, L)).reshape(lead + (2 * L * L,))
-    o = o[..., : L * (2 * L - 1)].reshape(lead + (L, 2 * L - 1))
-    c = o.sum(-2)                                          # (..., 2L-1)
+    if b.dim() == 1:
+        t = torch.zeros(L * (2 * L - 1), dtype=torch.float64,
+                        device=b.device)
+        t[_index("toeplitz", L, b.device)] = b.to(torch.float64).repeat(L)
+        c = torch.matmul(a.to(torch.float64),
+                         t.reshape(L, 2 * L - 1)).to(I64)
+    else:
+        o = a.unsqueeze(-1) * b.unsqueeze(-2)              # (..., L, L)
+        lead = o.shape[:-2]
+        c = torch.zeros(lead + (2 * L - 1,), dtype=o.dtype, device=o.device)
+        c.index_add_(-1, _index("diag", L, o.device),
+                     o.reshape(lead + (L * L,)))
     if n_cols <= 2 * L - 1:
         return c[..., :n_cols]
     return F.pad(c, (0, n_cols - (2 * L - 1)))
@@ -157,15 +202,13 @@ class FieldParams:
 
     def from_int(self, x) -> np.ndarray:
         if isinstance(x, (list, tuple)):
-            return np.stack([int_to_limbs(int(v) % self.modulus, self.L)
-                             for v in x])
+            return ints_to_limbs([int(v) % self.modulus for v in x], self.L)
         return int_to_limbs(int(x) % self.modulus, self.L)
 
     def to_mont_host(self, x) -> np.ndarray:
         m, R = self.modulus, self.R
         if isinstance(x, (list, tuple)):
-            return np.stack([int_to_limbs((int(v) % m) * R % m, self.L)
-                             for v in x])
+            return ints_to_limbs([(int(v) % m) * R % m for v in x], self.L)
         return int_to_limbs((int(x) % m) * R % m, self.L)
 
     def to_int(self, limbs):
@@ -244,6 +287,31 @@ class FieldParams:
     def inv(self, a):
         """Fermat inversion a^(p-2); inv(0) = 0."""
         return self.pow_bits(a, self.inv_exp_bits)
+
+    def batch_inv(self, a, axis: int = 0):
+        """Montgomery-trick inversion of every element along `axis` (an
+        element axis, not the limb axis): prefix and suffix products by
+        log-depth Hillis-Steele steps (one batched product each, prefix
+        and suffix together), one Fermat inversion of the total, then
+        inv(x_i) = prefix_{i-1} * suffix_{i+1} * total^-1.  Zero maps to
+        zero (masked to one inside).  Counterpart of
+        ``tpukzg/field/mont.py::_batch_inv``."""
+        a = a.movedim(axis, 0)
+        zero = self.is_zero(a).unsqueeze(-1)
+        one = self.const("one_mont", a.device, I32).expand(a.shape)
+        x = torch.where(zero, one, a)
+        ps = torch.stack([x, x.flip(0)], 1)            # (n, 2, ..., L)
+        n, d = ps.shape[0], 1
+        while d < n:
+            ps = torch.cat([ps[:d], self.mul(ps[d:], ps[:-d])], 0)
+            d <<= 1
+        prefix, suffix = ps[:, 0], ps[:, 1].flip(0)
+        total_inv = self.inv(prefix[-1])
+        pre = torch.cat([one[:1], prefix[:-1]], 0)
+        suf = torch.cat([suffix[1:], one[:1]], 0)
+        out = self.mul(self.mul(pre, suf), total_inv.expand(a.shape))
+        out = torch.where(zero, torch.zeros_like(out), out)
+        return out.movedim(0, axis)
 
     def sum_along(self, a, axis: int = 0):
         a = a.movedim(axis, 0)

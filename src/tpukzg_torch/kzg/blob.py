@@ -1,10 +1,11 @@
-"""EIP-4844-shaped blob verification over bytes (counterpart of
-``tpukzg/kzg/blob.py:29-58, 88-105, 232-428``), run synchronously.
+"""EIP-4844-shaped blob commitments, proofs and batch verification over
+bytes (counterpart of ``tpukzg/kzg/blob.py:29-58, 88-105, 129-142,
+171-428``), run synchronously.
 
 Blobs are n big-endian 32-byte Fr elements, evaluations on the
 bit-reversed domain.  The host does the Fiat-Shamir hashing; the
-decompression, staging, evaluation, MSM and pairing run on the setup's
-device.
+decompression, staging, evaluation, quotient, MSMs and pairing run on
+the setup's device.
 """
 
 from __future__ import annotations
@@ -40,6 +41,22 @@ def stage_blobs(raw, brp):
     return FR.to_mont(natural.to(torch.int32)), ok.all()
 
 
+def blob_to_limbs(blob: bytes, n: int) -> np.ndarray:
+    """n*32 big-endian bytes -> (n, 16) canonical Fr limbs, int32;
+    raises ValueError on a wrong length or an element >= r."""
+    if len(blob) != n * BYTES_PER_FIELD_ELEMENT:
+        raise ValueError(f"blob must be {n * BYTES_PER_FIELD_ELEMENT} bytes")
+    a = np.frombuffer(blob, dtype=np.uint8).reshape(n, 32).astype(np.int32)
+    limbs_be = (a[:, 0::2] << 8) | a[:, 1::2]            # MSB limb first
+    r_be = np.asarray(_R_BE, np.int32)
+    diff = limbs_be != r_be
+    first = np.argmax(diff, axis=1)                      # first differing
+    rows = np.arange(n)
+    if not np.all(diff[rows, first] & (limbs_be[rows, first] < r_be[first])):
+        raise ValueError("blob element out of Fr range")
+    return limbs_be[:, ::-1].copy()
+
+
 def fr_ints_from_limbs(limbs) -> list[int]:
     a = np.asarray(limbs.cpu() if torch.is_tensor(limbs) else limbs)
     return [FR.to_int(row) for row in a.reshape(-1, 16)]
@@ -68,6 +85,73 @@ class BlobKzg:
         self.last_phases[name] = t - t0
         return t
 
+    # -- prover ------------------------------------------------------------
+
+    def _blob_natural_mont(self, blobs):
+        """blobs -> (k, n, 16) Montgomery evals in natural domain order;
+        raises ValueError on a wrong length or an element >= r."""
+        for b in blobs:
+            if len(b) != self.bytes_per_blob:
+                raise ValueError(f"blob must be {self.bytes_per_blob} bytes")
+        raw = np.frombuffer(b"".join(blobs), np.uint8).reshape(
+            len(blobs), self.n, 32)
+        mont, ok = stage_blobs(torch.as_tensor(raw.copy()).to(self.device),
+                               self._brp)
+        if not bool(ok.item()):
+            raise ValueError("blob element out of Fr range")
+        return mont
+
+    def _z_mont(self, zs):
+        return torch.as_tensor(FR.from_int(
+            [(zi << 256) % R_MOD for zi in zs]).reshape(len(zs), 16),
+            device=self.device)
+
+    def blob_to_kzg_commitment(self, blob: bytes) -> bytes:
+        return self.blob_to_kzg_commitment_batch([blob])[0]
+
+    def compute_kzg_proof(self, blob: bytes, z_bytes: bytes):
+        """-> (proof_bytes, y_bytes)."""
+        evals = self._blob_natural_mont([blob])[0]
+        z = FR.to_int(blob_to_limbs(z_bytes, 1)[0])
+        pi, y = self.kzg.open(evals, self._z_mont([z])[0])
+        return (g1m.compress_points(tuple(c[None] for c in pi))[0],
+                transcript.fr_to_bytes(FR.to_int(FR.from_mont(y))))
+
+    def compute_blob_kzg_proof(self, blob: bytes,
+                               commitment_bytes: bytes) -> bytes:
+        z = transcript.compute_challenge(blob, commitment_bytes, self.n)
+        proof, _ = self.compute_kzg_proof(blob, transcript.fr_to_bytes(z))
+        return proof
+
+    def blob_to_kzg_commitment_batch(self, blobs) -> list[bytes]:
+        """Commit every blob in one batched Lagrange-SRS MSM."""
+        if not blobs:
+            return []
+        return g1m.compress_points(self.kzg.commit(
+            self._blob_natural_mont(blobs)))
+
+    def compute_blob_kzg_proof_batch(self, blobs,
+                                     commitment_bytes_list) -> list[bytes]:
+        """Proofs for k blobs at their Fiat-Shamir points in one batched
+        open (barycentric eval, quotient, one MSM per blob)."""
+        k = len(blobs)
+        if k != len(commitment_bytes_list):
+            raise ValueError("blobs and commitments differ in count")
+        if k == 0:
+            return []
+        evals = self._blob_natural_mont(blobs)
+        zs = [transcript.compute_challenge(blobs[i], commitment_bytes_list[i],
+                                           self.n) for i in range(k)]
+        pi, _ = self.kzg.open(evals, self._z_mont(zs))
+        return g1m.compress_points(pi)
+
+    def verify_blob_kzg_proof(self, blob: bytes, commitment_bytes: bytes,
+                              proof_bytes: bytes) -> bool:
+        return self.verify_blob_kzg_proof_batch(
+            [blob], [commitment_bytes], [proof_bytes])
+
+    # -- verify ------------------------------------------------------------
+
     def verify_blob_kzg_proof_batch(self, blobs, commitment_bytes_list,
                                     proof_bytes_list) -> bool:
         k = len(blobs)
@@ -94,8 +178,7 @@ class BlobKzg:
         zs = [transcript.compute_challenge(blobs[i], commitment_bytes_list[i],
                                            self.n) for i in range(k)]
         z_can = torch.as_tensor(FR.from_int(zs).reshape(k, 16), device=dev)
-        z_mont = torch.as_tensor(FR.from_int(
-            [(zi << 256) % R_MOD for zi in zs]).reshape(k, 16), device=dev)
+        z_mont = self._z_mont(zs)
         raw = np.frombuffer(b"".join(blobs), np.uint8).reshape(k, self.n, 32)
         raw_t = torch.as_tensor(raw.copy()).to(dev)
         mont, ok_range = stage_blobs(raw_t, self._brp)

@@ -1,9 +1,19 @@
-"""KZG batch verification (counterpart of ``tpukzg/kzg/core.py:182-227``).
+"""KZG commit, open and batch verification (counterpart of
+``tpukzg/kzg/core.py:48-148, 182-227``).
 
-The k openings fold by powers of rho into ONE grouped MSM over 3k+1
-points, groups (k, 2k+1), then two pairings on the precomputed lines:
+Commit and open are MSMs against a fixed-base table of the Lagrange
+(evaluation form) or monomial (coefficient form) SRS, built once per
+basis on the setup's device.  Open is the barycentric eval, the
+evaluation-form quotient and one such MSM; the coefficient-form calls go
+through the NTT first.
+
+Batch verify folds the k openings by powers of rho into ONE grouped MSM
+over 3k+1 points, groups (k, 2k+1), then two pairings on the
+precomputed lines:
     e(sum rho^i pi_i, [tau]_2) == e(sum rho^i (C_i - [y_i]_1 + z_i pi_i), [1]_2)
-MSM scalars are canonical Fr limbs; field data (y) is Montgomery.
+
+MSM scalars are canonical Fr limbs; field data (evals, coefficients, z,
+y) is Montgomery.  Points are (X, Y, Z) tuples of (..., 24) tensors.
 """
 
 from __future__ import annotations
@@ -13,8 +23,10 @@ import torch
 from tpukzg_torch.curve import g1 as g1m
 from tpukzg_torch.field.mont import FP, FR
 from tpukzg_torch.kzg.setup import Setup
-from tpukzg_torch.msm.pippenger_lm import default_window, msm_grouped
+from tpukzg_torch.msm.pippenger_lm import (build_fixed_table, default_window,
+                                           msm_fixed, msm_grouped)
 from tpukzg_torch.pairing.check import pairing_check
+from tpukzg_torch.poly.poly import barycentric_eval, eval_form_quotient
 
 
 class Kzg:
@@ -24,6 +36,66 @@ class Kzg:
         self.device = setup.device
         self.plan = setup.plan
         self.roots = torch.as_tensor(setup.plan.roots, device=self.device)
+        self.c_commit = default_window(self.n)
+        self._tables: dict = {}
+
+    # -- fixed-base SRS tables ---------------------------------------------
+
+    def table(self, name: str):
+        """Window table of the "lag" or "mono" SRS basis, built at first
+        use and kept on the device."""
+        t = self._tables.get(name)
+        if t is None:
+            pts = (self.setup.lagrange_g1 if name == "lag"
+                   else self.setup.monomial_g1)
+            t = self._tables[name] = build_fixed_table(pts, self.c_commit)
+        return t
+
+    def _msm_fixed(self, name: str, scalars_mont):
+        """(..., n, 16) Montgomery scalars -> points (...)."""
+        ks = FR.from_mont(scalars_mont)                  # canonical bits
+        batch = ks.shape[:-2]
+        out = msm_fixed(self.table(name), ks.reshape(-1, self.n, 16),
+                        self.c_commit)
+        return tuple(o.reshape(batch + (24,)) for o in out)
+
+    # -- commit / open -----------------------------------------------------
+
+    def commit(self, evals_mont):
+        """Evaluation-form commit C = sum e_i [L_i(tau)]_1."""
+        return self._msm_fixed("lag", evals_mont)
+
+    def commit_coeff(self, coeffs_mont):
+        """Coefficient-form commit C = sum a_i [tau^i]_1."""
+        return self._msm_fixed("mono", coeffs_mont)
+
+    def eval_at(self, evals_mont, z_mont):
+        """p(z) for evaluation-form p: (..., n, 16), (..., 16) -> (..., 16)."""
+        batch = evals_mont.shape[:-2]
+        ev = evals_mont.reshape(-1, self.n, 16)
+        z = torch.broadcast_to(z_mont, batch + (16,)).reshape(-1, 16)
+        return barycentric_eval(self.plan, ev, z, self.roots).reshape(
+            batch + (16,))
+
+    def open(self, evals_mont, z_mont):
+        """Open at z -> (proof point, y Montgomery)."""
+        y = self.eval_at(evals_mont, z_mont)
+        q = eval_form_quotient(self.plan, evals_mont, z_mont, y, self.roots)
+        return self._msm_fixed("lag", q), y
+
+    def open_coeff(self, coeffs_mont, z_mont):
+        """Coefficient form: NTT, then `open`."""
+        return self.open(self.to_evals(coeffs_mont), z_mont)
+
+    def interpolate(self, evals_mont):
+        """Natural-order evaluations -> coefficients (iNTT)."""
+        return self.plan.intt(evals_mont)
+
+    def to_evals(self, coeffs_mont):
+        """Coefficients -> natural-order evaluations (NTT)."""
+        return self.plan.ntt(coeffs_mont)
+
+    # -- verify ------------------------------------------------------------
 
     def verify_batch_msm(self, c_points, z_can, y_can, proof_points, rho_can):
         """-> (pi_agg, lhs): points as (X, Y, Z) tuples of (24,) tensors."""

@@ -1,9 +1,12 @@
-"""Grouped Pippenger MSM in the limb-major layout (counterpart of
-``tpukzg/msm/pippenger.py:36-58`` and ``msm/pippenger_lm.py:53-174``).
+"""Pippenger MSMs in the limb-major layout (counterpart of
+``tpukzg/msm/pippenger.py:36-58`` and ``msm/pippenger_lm.py:53-275``).
 
 Sort-by-digit, then the segmented bucket scan (kernel B3 on the card),
 one gather of each bucket's last lane, the suffix scan over buckets
-(B3 again), a tree sum over buckets, and the Horner fold over windows.
+(B3 again) and a tree sum over buckets.  The grouped MSM (batch verify)
+then folds its windows by Horner; the fixed-base MSM (commit, open) has
+them folded into a table of [2^(c w)] P_i, so one sorted row of W n keys
+per MSM needs no doublings at all.
 """
 
 from __future__ import annotations
@@ -104,3 +107,40 @@ def msm_grouped(points, scalars, groups, c: int, curve: CurveLM = G1_LM):
             acc = curve.double(acc)
         acc = curve.add(acc, tuple(c_[:, W - 1 - i] for c_ in wres))
     return [tuple(c_[:, i] for c_ in acc) for i in range(G)]
+
+
+def build_fixed_table(points, c: int, curve: CurveLM = G1_LM):
+    """points (X, Y, Z) of (n, 24) -> coords (24, W, n) with
+    table[:, w] = [2^(c w)] P_i: W - 1 runs of c doublings, built once
+    per SRS basis (28.3 MB at n = 4096, c = 11)."""
+    W = -(-256 // c)
+    cur = tuple(p.movedim(-1, 0).contiguous() for p in points)   # (24, n)
+    tabs = [cur]
+    for _ in range(W - 1):
+        for _ in range(c):
+            cur = curve.double(cur)
+        tabs.append(cur)
+    return tuple(torch.stack([t[i] for t in tabs], 1) for i in range(3))
+
+
+def msm_fixed(table, scalars, c: int, curve: CurveLM = G1_LM):
+    """k MSMs against one fixed-base table: scalars (k, n, 16) canonical
+    -> (X, Y, Z) of (k, 24).  Each MSM is one row of W n keys (its digits
+    of every window; the table holds the window weights), sorted once and
+    scanned by B3 in chunks of rows (the reference's 2^28-byte budget)."""
+    W, n = table[0].shape[1:]
+    k = scalars.shape[0]
+    if k == 0:
+        return tuple(t.new_zeros((0, t.shape[0])) for t in table)
+    keys = _digits(scalars, c).movedim(1, 0).reshape(k, W * n)  # (k, W n)
+    flat = tuple(t.reshape(t.shape[0], W * n) for t in table)
+    res = []
+    g = _chunk(W * n, k)
+    for r0 in range(0, k, g):
+        sorted_dg, perm = torch.sort(keys[r0:r0 + g], dim=1, stable=True)
+        pts = tuple(c_[:, perm] for c_ in flat)               # (24, g, W n)
+        scanned = bucket.seg_scan(pts, sorted_dg)
+        buckets = _bucket_totals(curve, scanned, sorted_dg, c)
+        res.append(_window_sums(curve, buckets))              # (24, g)
+    return tuple(torch.cat([r[i] for r in res], 1).movedim(0, -1)
+                 for i in range(3))

@@ -1,5 +1,5 @@
-"""Evaluation-form barycentric evaluation over Fr (counterpart of
-``tpukzg/poly/poly.py``).
+"""Evaluation-form barycentric evaluation and opening quotient over Fr
+(counterpart of ``tpukzg/poly/poly.py``).
 
 Inversion-free fraction tree:  sum_i e_i w^i / (z - w^i) = N(z) / (z^n - 1)
 and p(z) = N(z) / n, in and out of the domain alike.  The bottom of the
@@ -38,3 +38,24 @@ def barycentric_eval(plan, evals, z, roots=None):
     a, b = fractree.fractree_partials(evals, z, roots)
     num = _fraction_merge(a, b)
     return FR.mul(num, torch.as_tensor(plan.n_inv, device=evals.device))
+
+
+def eval_form_quotient(plan, evals, z, y, roots=None, F=FR):
+    """Witness q(X) = (p(X) - y) / (X - z) in evaluation form: evals
+    (..., n, 16), z and y (..., 16) Montgomery -> (..., n, 16).
+
+    q_i = (e_i - y) / (w^i - z), with the inverses batched (``batch_inv``,
+    zero -> zero).  Where z = w^m the denominator at m is zero and the
+    correction q_m = -z^-1 sum_j (e_j - y) w^j / (w^j - z) is added
+    there.  Both branches are computed and blended by the mask, with no
+    data-dependent control flow (``tpukzg/poly/poly.py:97-112``)."""
+    if roots is None:
+        roots = torch.as_tensor(plan.roots, device=evals.device)
+    num = F.sub(evals, y[..., None, :])                   # e_i - y
+    den = F.sub(roots, z[..., None, :])                   # w^i - z
+    mask = F.is_zero(den)                                 # only at m
+    q = F.mul(num, F.batch_inv(den, axis=-2))
+    s = F.sum_along(F.mul(q, roots), axis=-2)
+    corr = F.neg(F.mul(F.inv(z), s))
+    return F.add(q, torch.where(mask[..., None], corr[..., None, :],
+                                torch.zeros_like(q)))

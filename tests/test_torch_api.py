@@ -12,7 +12,7 @@ import torch
 import golden.model as gold
 import tpukzg_torch as tt
 from tpukzg_torch.field.mont import FP, resolve_device
-from tpukzg_torch.kernels import bucket, ec, fractree, montmul
+from tpukzg_torch.kernels import bucket, ec, fractree, montmul, ntt
 from tpukzg_torch.kzg.setup import Setup
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,6 +65,10 @@ def test_kernel_wrappers_never_fall_back():
             torch.zeros((1, 8, 16), dtype=torch.int32, device="meta"),
             torch.zeros((1, 16), dtype=torch.int32, device="meta"),
             torch.zeros((8, 16), dtype=torch.int32, device="meta"))
+    from tpukzg_torch.ntt.ntt import get_plan
+    with pytest.raises(ValueError):
+        ntt.ntt(torch.zeros((1, 16, 16), dtype=torch.int32, device="meta"),
+                get_plan(16))
 
 
 _CHILD = r"""
@@ -78,9 +82,10 @@ z = np.load(sys.argv[2])
 ts = tt.generate_insecure_setup(0xDEADBEEF, 16, device="cpu")
 ok = tt.verify_blob_kzg_proof_batch([z["blob"].tobytes()],
                                     [z["c"].tobytes()], [z["p"].tobytes()], ts)
+same = tt.blob_to_kzg_commitment(z["blob"].tobytes(), ts) == z["c"].tobytes()
 mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpukzg")
         and sys.modules[m] is not None]
-print("VERDICT", ok, "JAXMODS", mods)
+print("VERDICT", ok, "COMMIT", same, "JAXMODS", mods)
 """
 
 
@@ -97,4 +102,4 @@ def test_port_runs_with_jax_blocked(tmp_path):
         [sys.executable, "-c", _CHILD, os.path.join(REPO, "src"), str(path)],
         capture_output=True, text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert "VERDICT True JAXMODS []" in out.stdout
+    assert "VERDICT True COMMIT True JAXMODS []" in out.stdout

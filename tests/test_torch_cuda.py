@@ -6,9 +6,10 @@ it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
 
-Tolerances: montmul, ec_add and the fraction-tree numerator exact; the
-scans affine-equal (a row above 768 lanes is two tiles joined by a
-carry, which adds in another order than the plain `loop` scan)."""
+Tolerances: montmul, ec_add, the NTT and the fraction-tree numerator
+exact; the scans affine-equal (a row above 768 lanes is several tiles
+joined by a carry, which adds in another order than the plain `loop`
+scan)."""
 
 import random
 
@@ -18,9 +19,10 @@ import torch
 from tpukzg_torch.field.mont import FP, FR, FP_PLAIN, FR_PLAIN
 from tpukzg_torch.field.limb_major import FP_LM_PLAIN
 from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
-from tpukzg_torch.kernels import bucket, ec, fractree, montmul
+from tpukzg_torch.kernels import bucket, ec, fractree, montmul, ntt
 
-from torch_cases import ec_inputs, operands, scan_inputs
+from torch_cases import (ec_inputs, long_row_scan_inputs, ntt_inputs,
+                         operands, scan_inputs)
 
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
@@ -83,3 +85,26 @@ def test_fractree_kernel_on_card(cuda):
     want = _fraction_merge(*fractree.fractree_partials_plain(ev, zz, rr),
                            FR_PLAIN)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 4096, 1 << 14])
+def test_ntt_kernel_on_card(cuda, n):
+    """One block per polynomial up to n = 4096; 2^14 adds two passes."""
+    from tpukzg_torch.ntt.ntt import get_plan
+    plan = get_plan(n)
+    x = torch.from_numpy(ntt_inputs(3 if n <= 4096 else 1, n, n)).to(cuda)
+    for inverse in (False, True):
+        assert torch.equal(ntt.ntt(x, plan, inverse),
+                           ntt.ntt_plain(x, plan, inverse))
+    assert torch.equal(ntt.ntt(ntt.ntt(x, plan), plan, True), x)
+
+
+@pytest.mark.cuda
+def test_bucket_kernel_long_rows_on_card(cuda):
+    """Rows of 6000 lanes: 8 tiles, segments carried across tile edges."""
+    pts, seg = long_row_scan_inputs(2, 6000, 9)
+    tp = tuple(torch.from_numpy(c).to(cuda) for c in pts)
+    ts = torch.from_numpy(seg).to(cuda)
+    assert bool(G1_LM_PLAIN.eq(bucket.seg_scan(tp, ts),
+                               bucket.seg_scan_plain(tp, ts)).all())

@@ -8,7 +8,7 @@ import random
 import numpy as np
 import torch
 
-from tpukzg_torch.field.mont import FP
+from tpukzg_torch.field.mont import FP, FR
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRS16 = os.path.join(REPO, ".srs_cache", "srs_16_436c40aaaab022da.npz")
@@ -60,3 +60,20 @@ def scan_inputs(g, n, seed, nkeys=5):
     coords = tuple(c[:, idx].reshape(24, g, n).copy() for c in pts)
     seg = np.sort(nprng.integers(0, nkeys, size=(g, n)), -1).astype(np.int32)
     return coords, seg
+
+
+def ntt_inputs(k, n, seed):
+    """(k, n, 16) Montgomery Fr limbs, int32; the first three elements of
+    polynomial 0 are 0, 1 and r - 1."""
+    rng = random.Random(seed)
+    vals = [rng.randrange(FR.modulus) for _ in range(k * n)]
+    vals[:3] = [0, 1, FR.modulus - 1][:len(vals)]
+    return FR.to_mont_host(vals).reshape(k, n, 16)
+
+
+def long_row_scan_inputs(g, n, seed):
+    """Rows shaped like the fixed-base MSM's (98,304 lanes under 2^11 - 1
+    bucket keys: ~48 lanes a segment): n lanes, many 768-lane tiles, of
+    SRS points under sorted keys with ~48 lanes a key, so segments span
+    tile edges."""
+    return scan_inputs(g, n, seed, nkeys=max(1, n // 48))

@@ -5,9 +5,11 @@
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit) and torch's CUDA version;
-  2. the kernels built from csrc/ (nvcc), with the build seconds;
+  2. the kernels built from csrc/ (nvcc), with the build seconds, and
+     each source's kernels with their registers and spill (ptxas);
+     B2 and B3 must spill nothing;
   3. B1 montmul (Fp, Fr; 2^20 lanes) and B2 ec_add (2^16 lanes) against
-     their plain tensor versions;
+     their plain tensor versions, bit for bit;
   4. the main path: verify_blob_kzg_proof_batch on the n=4096 SRS and the
      bench fixtures — a k=8 warm-up, k=256 (True, launch counts taken
      around this run alone), k=256 with one tampered proof byte (False)
@@ -15,18 +17,23 @@ Phases, each printed on its own line:
      then one more k=256 verify with its tensor ops counted, and one
      under torch.profiler for the device's busy share;
   5. B3 bucket scan and B4 fraction tree against their plain versions on
-     the very inputs the k=256 run gave them (one z moved in-domain);
+     the very inputs the k=256 run gave them (one z moved in-domain); B3
+     launched twice must give the same limbs;
   6. the prover path on the 16 fixture blobs (launch counts taken around
      each step alone): blob_to_kzg_commitment_batch and
      compute_blob_kzg_proof_batch byte-equal to the fixture, accepted by
-     verify_blob_kzg_proof_batch; interpolate (iNTT, B5), commit_coeff
-     and open_coeff (NTT, B5) giving the same bytes, and
+     verify_blob_kzg_proof_batch, and one more commit batch under
+     torch.profiler for the device's busy share; interpolate (iNTT,
+     B5), commit_coeff and open_coeff (NTT, B5) giving the same bytes, and
      to_evals(interpolate(e)) == e; one in-domain and two out-of-domain
      openings accepted by Kzg.verify_batch (and one wrong y refused);
   7. B5 NTT against its plain version on the prover path's own
      (16, 4096) inputs, both directions, and at n = 2^18 (one seeded
      polynomial, the multi-pass branch); B3 on one chunk the fixed-base
-     MSM launched (rows of 98,304 lanes);
+     MSM launched (rows of 98,304 lanes) and on one of its suffix scans,
+     each twice; every B3 check reports the grid of each device kernel
+     the launcher ran, and the fixed-base chunk's local pass must run at
+     least one block an SM;
   8. one JSON line of kernel numbers, then the result line.
 Any failure exits non-zero before the result line.  The script never
 falls back to the CPU and imports neither JAX nor the JAX package.
@@ -35,8 +42,10 @@ falls back to the CPU and imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import collections
+import glob
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -167,6 +176,46 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_names():
+    """Names of the __global__ functions in csrc/*.cu."""
+    names = set()
+    for path in glob.glob(os.path.join(REPO, "src", "tpukzg_torch", "csrc",
+                                       "*.cu")):
+        with open(path) as fh:
+            names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                    r"\([^)]*\)\s*)?(\w+)\s*\(", fh.read()))
+    return names
+
+
+def short_name(name: str, known) -> str:
+    """The longest kernel name of `known` inside a mangled or demangled
+    name, else the name itself."""
+    return max((k for k in known if k in name), key=len, default=name)
+
+
+def ptxas_summary(log: str):
+    """{source: {kernel: {"registers": r, "spill_bytes": s}}} from the
+    `nvcc -Xptxas -v` build log (spill = stores + loads)."""
+    out, src, fn, known = {}, None, None, kernel_names()
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+            out[src] = {}
+            continue
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            fn = short_name(m.group(1), known)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and src and fn:
+            out[src].setdefault(fn, {})["spill_bytes"] = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and src and fn:
+            out[src].setdefault(fn, {})["registers"] = int(m[1])
+    return out
+
+
 def point_pool(torch, setup):
     """All SRS points (Lagrange and monomial), limb-major (24, 2n)."""
     return tuple(torch.cat([a, b], 0).movedim(-1, 0).contiguous()
@@ -242,9 +291,7 @@ def check_ec_add(torch, pool, lanes: int, gen, reps: int):
     torch.cuda.synchronize()
     err = max(int((g.long() - w.long()).abs().max().item())
               for g, w in zip(got, want))
-    same = G1_LM_PLAIN.eq(got, want)
-    check(bool(same.all().item()), "ec_add: kernel != plain after "
-          f"normalisation in {int((~same).sum().item())} lanes")
+    check(err == 0, f"ec_add: kernel != plain (max limb err {err})")
     check(bool(G1_LM_PLAIN.is_inf(tuple(c[:, 1:2] for c in got)).all()),
           "ec_add: P + (-P) is not infinity")
     ms = cuda_ms(torch, lambda: ec.ec_add(p, q), reps)
@@ -252,7 +299,7 @@ def check_ec_add(torch, pool, lanes: int, gen, reps: int):
     bms, by = bound_ms(9 * lanes * 24 * 4, lanes * EC_ADD_OPS)
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, shape=[24, lanes],
-                check=f"affine-equal in all {lanes} lanes incl. inf, P+P, "
+                check=f"bit-exact in all {lanes} lanes incl. inf, P+P, "
                       "P+(-P)")
 
 
@@ -269,6 +316,10 @@ def check_bucket(torch, pts, seg, reps: int):
     from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
     from tpukzg_torch.kernels import bucket
     got = bucket._launch(pts, seg)
+    grid = dict(bucket.last_grid)
+    again = bucket._launch(pts, seg)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"bucket scan: two launches on {tuple(seg.shape)} differ")
     step = max(1, (1 << 16) // seg.shape[1])
 
     def plain():
@@ -288,8 +339,11 @@ def check_bucket(torch, pts, seg, reps: int):
     g, n = seg.shape
     adds = scan_adds(torch, seg)
     bms, by = bound_ms(6 * 24 * 4 * g * n + 4 * g * n, adds * EC_ADD_OPS)
+    check(grid.get("scan_local", 0) > 0,
+          f"bucket scan on {tuple(seg.shape)} reported the grid {grid}")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, adds=adds, shape=[24, g, n])
+                bound_by=by, adds=adds, shape=[24, g, n],
+                device_kernels=len(grid), grid=grid)
 
 
 def check_fractree(torch, evals, z, roots, plan, reps: int):
@@ -355,7 +409,8 @@ def run_path(torch, fn):
 
 def prover_path(torch, ts, say_path):
     """Steps 1-3 of the prover slice on the 16 fixture blobs.  Returns
-    (launches by path, captured fixed-base B3 chunk, NTT inputs)."""
+    (launches by path, captured fixed-base B3 chunk and suffix scan, NTT
+    inputs)."""
     import tpukzg_torch
     from tpukzg_torch.curve import g1 as g1m
     from tpukzg_torch.field.mont import FR, R_MOD
@@ -379,6 +434,8 @@ def prover_path(torch, ts, say_path):
     def rec(pts, seg):
         if seg.shape[1] > ts.n:            # W n lanes, not 2^c - 1
             captured.setdefault("fixed", (pts, seg))
+        else:                              # the suffix scan of the buckets
+            captured.setdefault("suffix", (pts, seg))
         return orig(pts, seg)
 
     bucket._launch = rec
@@ -397,6 +454,16 @@ def prover_path(torch, ts, say_path):
     say_path(f"proof_batch k={k}", wall, paths["proof_batch"])
     check(got_pfs == pfs, "proofs differ from the fixture's: "
           f"{[i for i in range(k) if got_pfs[i] != pfs[i]]}")
+    wall_p, busy, n_dev, top = device_busy(
+        torch, lambda: tpukzg_torch.blob_to_kzg_commitment_batch(blobs, ts))
+    if n_dev:
+        say(f"[prover commit_batch k={k}] one more, profiled: {n_dev} "
+            f"device kernels busy {busy:.4f} s of {wall_p:.3f} s wall "
+            f"({100 * busy / wall_p:.1f} %); top device ms "
+            f"{json.dumps(top)}")
+    else:
+        say(f"[prover commit_batch k={k}] device busy share not measured: "
+            "the profiler trace holds no device events")
     ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, got_cs, got_pfs, ts)
     say(f"[prover] the {k} fixture commitments and proofs reproduced byte "
         f"for byte; verify_blob_kzg_proof_batch of them: {ok}")
@@ -487,9 +554,14 @@ def main() -> int:
     say(f"[build] {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_info.get('seconds', 0.0):.1f} s) "
         f"-> {os.path.relpath(_build.build_info['path'], REPO)}")
-    for line in _build.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            say("[ptxas]", line.strip())
+    ptxas = ptxas_summary(_build.build_info.get("log", ""))
+    for src in sorted(ptxas):
+        say(f"[ptxas {src}] {json.dumps(ptxas[src])}")
+    for src in ("bucket.cu", "ec.cu"):
+        check(ptxas.get(src), f"no ptxas report for {src} in the build log")
+        spilled = {k: v for k, v in ptxas[src].items()
+                   if v.get("spill_bytes", 0)}
+        check(not spilled, f"{src} spills: {spilled}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0x5EED)
@@ -595,9 +667,11 @@ def main() -> int:
         pts, seg = captured[key]
         r = check_bucket(torch, pts, seg, REPS)
         parts.append(r)
-        say(f"[B3 bucket scan {r['shape']}] ok, affine-equal in every lane: "
-            f"{r['ms']:.3f} ms (plain {r['plain_ms']:.1f} ms, "
-            f"bound {r['bound_ms']:.4f} ms, {r['adds']} adds)")
+        say(f"[B3 bucket scan {r['shape']}] ok, affine-equal in every lane, "
+            f"the same limbs twice: {r['ms']:.3f} ms (plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms, "
+            f"{r['adds']} adds; device kernels launched and their blocks "
+            f"{json.dumps(r['grid'])})")
     results["bucket_scan"] = dict(
         max_abs_err=max(p["max_abs_err"] for p in parts),
         ms=sum(p["ms"] for p in parts),
@@ -606,8 +680,10 @@ def main() -> int:
         bound_by="operations" if all(p["bound_by"] == "operations"
                                      for p in parts) else "bytes",
         shape=[p["shape"] for p in parts],
+        grid=[p["grid"] for p in parts],
+        device_kernels=[p["device_kernels"] for p in parts],
         check="segmented and suffix (single-segment) scans affine-equal "
-              "in every lane")
+              "in every lane, the same limbs on two launches")
     evals, z, roots = captured["fractree"]
     r = check_fractree(torch, evals, z, roots, ts.setup.plan, REPS)
     results["fractree"] = r
@@ -655,12 +731,28 @@ def main() -> int:
     results["ntt"] = r
     check("fixed" in cap_fixed, "no fixed-base scan chunk was captured")
     pts, seg = cap_fixed["fixed"]
-    r = check_bucket(torch, pts, seg, 3)
-    r["check"] = "affine-equal in every lane of a fixed-base MSM chunk"
+    r = check_bucket(torch, pts, seg, REPS)
+    r["check"] = ("affine-equal in every lane of a fixed-base MSM chunk, "
+                  "the same limbs on two launches")
+    check("suffix" in cap_fixed, "no fixed-base suffix scan was captured")
+    s = check_bucket(torch, *cap_fixed["suffix"], REPS)
+    say(f"[B3 bucket scan suffix {s['shape']}] ok, affine-equal in every "
+        f"lane, the same limbs twice: {s['ms']:.3f} ms (plain "
+        f"{s['plain_ms']:.1f} ms, bound {s['bound_ms']:.4f} ms by "
+        f"{s['bound_by']}; device kernels launched and their blocks "
+        f"{json.dumps(s['grid'])})")
+    r["other_shapes"] = {"suffix": {f: s[f] for f in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "shape", "grid")}}
     results["bucket_scan_fixed"] = r
     say(f"[B3 bucket scan fixed-base {r['shape']}] ok, affine-equal in every "
-        f"lane: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f} ms, bound "
-        f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {r['adds']} adds)")
+        f"lane, the same limbs twice: {r['ms']:.3f} ms (plain "
+        f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
+        f"{r['bound_by']}, {r['adds']} adds; device kernels launched and "
+        f"their blocks {json.dumps(r['grid'])})")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = r["grid"].get("scan_local", 0)
+    check(blocks >= sms, f"fixed-base B3 ran {blocks} blocks on "
+          f"{sms} SMs")
 
     # 8. report
     meta = {
@@ -682,6 +774,8 @@ def main() -> int:
     # the path whose launches each entry reports; the counter name
     path_of = {"bucket_scan_fixed": ("commit_batch", "bucket_scan"),
                "ntt": ("coeff", "ntt")}
+    regs = {"ec_add": ptxas["ec.cu"], "bucket_scan": ptxas["bucket.cu"],
+            "bucket_scan_fixed": ptxas["bucket.cu"]}
     kernels = []
     for name, (src, repl) in meta.items():
         r = results[name]
@@ -696,8 +790,11 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None,
                             shape=r["shape"], check=r.get("check", ""),
-                            **({"other_shapes": r["other_shapes"]}
-                               if "other_shapes" in r else {})))
+                            **{k: r[k] for k in ("other_shapes", "grid",
+                                                 "device_kernels")
+                               if k in r},
+                            **({"ptxas": regs[name]} if name in regs
+                               else {})))
     say(json.dumps({"kernels": kernels}))
     say(f"[card] {card}")
     say(json.dumps({"ok": True, "device": {

@@ -2,23 +2,210 @@
 //
 // Replaces the device function tpukzg/pallas/ec.py::ec_add (Renes-
 // Costello-Batina 2015, Alg. 7, a = 0, b3 = 3b = 12): 12 Montgomery
-// products, no branches, correct for P = Q, P = -Q and infinity.  The
-// steps follow pallas/ec.py:71-100 one for one; every field result is
-// canonical, so the output is bit-identical to the reference.
+// products, no branches, correct for P = Q, P = -Q and infinity.  Every
+// field result is canonical and each step computes the same field value
+// as pallas/ec.py:71-100, so the output is bit-identical to the
+// reference whatever the order of the steps.
 //
 // What bounds it inside a kernel: integer multiplies (12 Fp products,
-// about 3,600 word products per add) and register pressure: two input
-// points are 72 words.  The formula is ordered so that few 12-word
-// temporaries are live at once.
+// about 3,600 word products per add) and registers, which set how many
+// warps an SM holds to hide the long multiply-add chains.  So:
+// - the two input points (72 words) stay in shared memory (`Words`);
+// - each product's second operand is read from shared memory a word per
+//   row, and its row loop stays rolled: one copy of ~60 instructions
+//   serves all 12 rows, so the compiler cannot interleave products (and
+//   hold several sets of operands) and the code stays small;
+// - the steps are ordered so that each temporary dies as soon as it is
+//   consumed, and y3, used by two products, waits in shared memory.
+// At most five 12-word temporaries, one operand and one product's
+// accumulator are live at once (~86 words).
 #pragma once
 
 #include "field.cuh"
 
 namespace tk {
 
-struct G1 {
-  uint32_t x[12], y[12], z[12];
+// G1 point words in shared memory, X, Y, Z of 12 words each: word w at
+// p[w * stride].  Also one or two 12-word field elements (scratch).
+struct Words {
+  volatile uint32_t* p;
+  int stride;
+  __device__ __forceinline__ uint32_t word(int c, int j) const {
+    return p[(12 * c + j) * stride];
+  }
+  // coordinate c alone
+  __device__ __forceinline__ Words at(int c) const {
+    return Words{p + 12 * c * stride, stride};
+  }
+  __device__ __forceinline__ void get(int c, uint32_t* w) const {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) w[j] = word(c, j);
+  }
+  // w = coordinate c0 + coordinate c1 (add_mod, read word by word)
+  __device__ __forceinline__ void get_sum(int c0, int c1, uint32_t* w) const {
+    uint32_t s[12];
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      c += (uint64_t)word(c0, j) + word(c1, j);
+      s[j] = (uint32_t)c;
+      c >>= 32;
+    }
+    cond_sub<FpT>(w, s, (uint32_t)c);
+  }
+  __device__ __forceinline__ void put(int c, const uint32_t* w) const {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) p[(12 * c + j) * stride] = w[j];
+  }
+  __device__ __forceinline__ void copy_from(const Words& q) const {
+#pragma unroll
+    for (int w = 0; w < 36; ++w) p[w * stride] = q.p[w * q.stride];
+  }
+  __device__ __forceinline__ void set_inf() const {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      p[j * stride] = 0u;
+      p[(12 + j) * stride] = kFpOne[j];
+      p[(24 + j) * stride] = 0u;
+    }
+  }
 };
+
+// A G1 point in device memory in the JAX package's format: coordinates
+// x, y, z of 24 16-bit limbs (one per int32), limb i at i * ls.  The
+// limb addresses advance by an opaque pointer step, so that a caller's
+// loop keeps no table of the 24 limb offsets in registers.
+struct Limbs {
+  int32_t* x;
+  int32_t* y;
+  int32_t* z;
+  long long ls;
+  __device__ __forceinline__ void put(int c, const uint32_t* w) const {
+    int32_t* q = c == 0 ? x : (c == 1 ? y : z);
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      q[0] = (int32_t)(w[j] & 0xffffu);
+      q[ls] = (int32_t)(w[j] >> 16);
+      q += 2 * ls;
+      asm volatile("" : "+l"(q));
+    }
+  }
+  __device__ __forceinline__ void store(const Words& s) const {
+    uint32_t w[12];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      s.get(c, w);
+      put(c, w);
+    }
+  }
+};
+
+// d = the point whose coordinates' 16-bit limbs are x, y, z (limb i at
+// i * ls)
+__device__ __forceinline__ void load_point(const Words& d, const int32_t* x,
+                                           const int32_t* y, const int32_t* z,
+                                           long long ls) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int32_t* q = c == 0 ? x : (c == 1 ? y : z);
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      d.p[(12 * c + j) * d.stride] =
+          ((uint32_t)q[0] & 0xffffu) | ((uint32_t)q[ls] << 16);
+      q += 2 * ls;
+      asm volatile("" : "+l"(q));
+    }
+  }
+}
+
+// r = a b R^-1 mod p, b read from shared memory (word i at b.p[i *
+// b.stride]).  CIOS as mont_mul<FpT> of field.cuh, each row's products
+// and carries as PTX carry chains (mad.lo.cc / madc.hi.cc), the shift by
+// a word folded into the reduction's chain.  The same t, m and final
+// subtraction as mont_mul, so the result is bit-identical.  r may alias
+// a.
+__device__ __forceinline__ void fp_mul(uint32_t* r, const uint32_t* a,
+                                       const Words& b) {
+  uint32_t t[14];
+#pragma unroll
+  for (int j = 0; j < 14; ++j) t[j] = 0;
+#pragma unroll 1
+  for (int i = 0; i < 12; ++i) {
+    const uint32_t bi = b.p[i * b.stride];
+    // t += a bi: the low halves into t[0..11], the high halves into
+    // t[1..12], carries up to t[13]
+    asm("mad.lo.cc.u32 %0, %14, %26, %0;\n\t"
+        "madc.lo.cc.u32 %1, %15, %26, %1;\n\t"
+        "madc.lo.cc.u32 %2, %16, %26, %2;\n\t"
+        "madc.lo.cc.u32 %3, %17, %26, %3;\n\t"
+        "madc.lo.cc.u32 %4, %18, %26, %4;\n\t"
+        "madc.lo.cc.u32 %5, %19, %26, %5;\n\t"
+        "madc.lo.cc.u32 %6, %20, %26, %6;\n\t"
+        "madc.lo.cc.u32 %7, %21, %26, %7;\n\t"
+        "madc.lo.cc.u32 %8, %22, %26, %8;\n\t"
+        "madc.lo.cc.u32 %9, %23, %26, %9;\n\t"
+        "madc.lo.cc.u32 %10, %24, %26, %10;\n\t"
+        "madc.lo.cc.u32 %11, %25, %26, %11;\n\t"
+        "addc.cc.u32 %12, %12, 0;\n\t"
+        "addc.u32 %13, %13, 0;\n\t"
+        "mad.hi.cc.u32 %1, %14, %26, %1;\n\t"
+        "madc.hi.cc.u32 %2, %15, %26, %2;\n\t"
+        "madc.hi.cc.u32 %3, %16, %26, %3;\n\t"
+        "madc.hi.cc.u32 %4, %17, %26, %4;\n\t"
+        "madc.hi.cc.u32 %5, %18, %26, %5;\n\t"
+        "madc.hi.cc.u32 %6, %19, %26, %6;\n\t"
+        "madc.hi.cc.u32 %7, %20, %26, %7;\n\t"
+        "madc.hi.cc.u32 %8, %21, %26, %8;\n\t"
+        "madc.hi.cc.u32 %9, %22, %26, %9;\n\t"
+        "madc.hi.cc.u32 %10, %23, %26, %10;\n\t"
+        "madc.hi.cc.u32 %11, %24, %26, %11;\n\t"
+        "madc.hi.cc.u32 %12, %25, %26, %12;\n\t"
+        "addc.u32 %13, %13, 0;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+          "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+          "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]),
+          "r"(bi));
+    // t = (t + m p) / 2^32, m = t[0] (-p^-1) mod 2^32: the low halves
+    // land a word down (t[0] + lo(m p0) is 0 mod 2^32; only its carry
+    // is kept), then the high halves
+    const uint32_t m = t[0] * FpT::INV;
+    asm("mad.lo.cc.u32 %0, %14, 0xffffaaab, %0;\n\t"
+        "madc.lo.cc.u32 %0, %14, 0xb9feffff, %1;\n\t"
+        "madc.lo.cc.u32 %1, %14, 0xb153ffff, %2;\n\t"
+        "madc.lo.cc.u32 %2, %14, 0x1eabfffe, %3;\n\t"
+        "madc.lo.cc.u32 %3, %14, 0xf6b0f624, %4;\n\t"
+        "madc.lo.cc.u32 %4, %14, 0x6730d2a0, %5;\n\t"
+        "madc.lo.cc.u32 %5, %14, 0xf38512bf, %6;\n\t"
+        "madc.lo.cc.u32 %6, %14, 0x64774b84, %7;\n\t"
+        "madc.lo.cc.u32 %7, %14, 0x434bacd7, %8;\n\t"
+        "madc.lo.cc.u32 %8, %14, 0x4b1ba7b6, %9;\n\t"
+        "madc.lo.cc.u32 %9, %14, 0x397fe69a, %10;\n\t"
+        "madc.lo.cc.u32 %10, %14, 0x1a0111ea, %11;\n\t"
+        "addc.cc.u32 %11, %12, 0;\n\t"
+        "addc.u32 %12, %13, 0;\n\t"
+        "mad.hi.cc.u32 %0, %14, 0xffffaaab, %0;\n\t"
+        "madc.hi.cc.u32 %1, %14, 0xb9feffff, %1;\n\t"
+        "madc.hi.cc.u32 %2, %14, 0xb153ffff, %2;\n\t"
+        "madc.hi.cc.u32 %3, %14, 0x1eabfffe, %3;\n\t"
+        "madc.hi.cc.u32 %4, %14, 0xf6b0f624, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, 0x6730d2a0, %5;\n\t"
+        "madc.hi.cc.u32 %6, %14, 0xf38512bf, %6;\n\t"
+        "madc.hi.cc.u32 %7, %14, 0x64774b84, %7;\n\t"
+        "madc.hi.cc.u32 %8, %14, 0x434bacd7, %8;\n\t"
+        "madc.hi.cc.u32 %9, %14, 0x4b1ba7b6, %9;\n\t"
+        "madc.hi.cc.u32 %10, %14, 0x397fe69a, %10;\n\t"
+        "madc.hi.cc.u32 %11, %14, 0x1a0111ea, %11;\n\t"
+        "addc.u32 %12, %12, 0;\n\t"
+        "mov.u32 %13, 0;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+          "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13])
+        : "r"(m));
+  }
+  cond_sub<FpT>(r, t, t[12]);
+}
 
 __device__ __forceinline__ void fp_mul_small3(uint32_t* r, const uint32_t* a) {
   uint32_t d[12];
@@ -34,43 +221,62 @@ __device__ __forceinline__ void fp_mul_small12(uint32_t* r, const uint32_t* a) {
   add_mod<FpT>(r, d4, d8);
 }
 
-// r = p + q.  r may alias p or q.
-__device__ __forceinline__ void ec_add(G1& r, const G1& p, const G1& q) {
-  uint32_t t0[12], t1[12], t2[12], t3[12], t4[12], t5[12], u[12], v[12];
-  mont_mul<FpT>(t0, p.x, q.x);
-  mont_mul<FpT>(t1, p.y, q.y);
-  mont_mul<FpT>(t2, p.z, q.z);
-  add_mod<FpT>(u, p.x, p.y);
-  add_mod<FpT>(v, q.x, q.y);
-  mont_mul<FpT>(t3, u, v);
-  add_mod<FpT>(u, p.y, p.z);
-  add_mod<FpT>(v, q.y, q.z);
-  mont_mul<FpT>(t4, u, v);
-  add_mod<FpT>(u, p.x, p.z);
-  add_mod<FpT>(v, q.x, q.z);
-  mont_mul<FpT>(t5, u, v);
-  add_mod<FpT>(u, t0, t1);
-  sub_mod<FpT>(t3, t3, u);          // X1 Y2 + X2 Y1
-  add_mod<FpT>(u, t1, t2);
-  sub_mod<FpT>(t4, t4, u);          // Y1 Z2 + Y2 Z1
-  add_mod<FpT>(u, t0, t2);
-  sub_mod<FpT>(t5, t5, u);          // X1 Z2 + X2 Z1
+// r = p + q, with w two 12-word field elements of scratch.  Every read
+// of p and q comes before the first write of r, so r may be p or q; w
+// must be neither.  R is Words or Limbs.
+template <class R>
+__device__ __forceinline__ void ec_add(const R& r, const Words& p,
+                                       const Words& q, const Words& w) {
+  const Words y3 = w.at(0), op = w.at(1);
+  uint32_t a[12], t0[12], t1[12], t2[12], t3[12];
+  p.get(0, a);
+  fp_mul(t0, a, q.at(0));           // X1 X2
+  p.get(2, a);
+  fp_mul(t2, a, q.at(2));           // Z1 Z2
+  q.get_sum(0, 2, a);
+  op.put(0, a);
+  p.get_sum(0, 2, a);
+  fp_mul(t3, a, op);
+  add_mod<FpT>(a, t0, t2);
+  sub_mod<FpT>(t3, t3, a);          // X1 Z2 + X2 Z1
+  fp_mul_small12(t3, t3);
+  y3.put(0, t3);                    // y3 = 3b (X1 Z2 + X2 Z1)
+  p.get(1, a);
+  fp_mul(t1, a, q.at(1));           // Y1 Y2
+  q.get_sum(0, 1, a);
+  op.put(0, a);
+  p.get_sum(0, 1, a);
+  fp_mul(t3, a, op);
+  add_mod<FpT>(a, t0, t1);
+  sub_mod<FpT>(t3, t3, a);          // X1 Y2 + X2 Y1
   fp_mul_small3(t0, t0);            // 3 X1 X2
+  q.get_sum(1, 2, a);
+  op.put(0, a);
+  p.get_sum(1, 2, a);
+  uint32_t s[12];
+  fp_mul(s, a, op);
+  add_mod<FpT>(a, t1, t2);
+  sub_mod<FpT>(s, s, a);            // s = Y1 Z2 + Y2 Z1
   fp_mul_small12(t2, t2);           // 3b Z1 Z2
-  uint32_t z3[12], y3[12];
-  add_mod<FpT>(z3, t1, t2);         // Y1 Y2 + 3b Z1 Z2
+  add_mod<FpT>(a, t1, t2);          // z3 = Y1 Y2 + 3b Z1 Z2
   sub_mod<FpT>(t1, t1, t2);         // Y1 Y2 - 3b Z1 Z2
-  fp_mul_small12(y3, t5);           // 3b (X1 Z2 + X2 Z1)
-  // X3 = t3 t1 - t4 y3;  Y3 = t1 z3 + y3 t0;  Z3 = z3 t4 + t0 t3
-  mont_mul<FpT>(u, t4, y3);
-  mont_mul<FpT>(v, t3, t1);
-  sub_mod<FpT>(r.x, v, u);
-  mont_mul<FpT>(u, y3, t0);
-  mont_mul<FpT>(v, t1, z3);
-  add_mod<FpT>(r.y, v, u);
-  mont_mul<FpT>(u, t0, t3);
-  mont_mul<FpT>(v, z3, t4);
-  add_mod<FpT>(r.z, v, u);
+  // live: t0 = 3 X1 X2, t1, a = z3, t3, s; y3 in w
+  // X3 = t3 t1 - s y3;  Y3 = t1 z3 + y3 t0;  Z3 = z3 s + t0 t3
+  op.put(0, t1);
+  fp_mul(t2, t3, op);
+  fp_mul(t1, s, y3);                // t1 is in op
+  sub_mod<FpT>(t2, t2, t1);
+  r.put(0, t2);
+  fp_mul(t2, a, op);                // z3 t1
+  op.put(0, a);                     // z3
+  fp_mul(a, t0, y3);
+  add_mod<FpT>(t2, t2, a);
+  r.put(1, t2);
+  fp_mul(t2, s, op);                // s z3
+  op.put(0, t3);
+  fp_mul(a, t0, op);                // 3 X1 X2 t3
+  add_mod<FpT>(t2, t2, a);
+  r.put(2, t2);
 }
 
 }  // namespace tk

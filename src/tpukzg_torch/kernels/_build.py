@@ -63,7 +63,9 @@ def build() -> str:
     out_dir = os.path.join(REPO, "build", _digest(cu + hdr))
     lib_path = os.path.join(out_dir, "libtpukzg_torch.so")
     if os.path.exists(lib_path):
-        build_info.update(path=lib_path, seconds=0.0, cached=True)
+        with open(os.path.join(out_dir, "nvcc.log")) as fh:
+            log = fh.read()
+        build_info.update(path=lib_path, seconds=0.0, cached=True, log=log)
         return lib_path
     nvcc = _nvcc()
     tmp = f"{out_dir}.tmp{os.getpid()}"

@@ -17,7 +17,7 @@ from tpukzg_torch.field.limb_major import FP_LM_PLAIN
 from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
 from tpukzg_torch.kernels import bucket, ec, montmul
 
-from torch_cases import ec_inputs, operands, scan_inputs
+from torch_cases import chunk_scan_inputs, ec_inputs, operands, scan_inputs
 
 # Tiny tensors: one intra-op thread keeps parallel test workers from
 # oversubscribing the cores.
@@ -82,6 +82,41 @@ def test_suffix_scan_plain_vs_loop_scan():
     for got in (bucket.suffix_scan_plain(tp), bucket.suffix_scan(tp)):
         for g, r in zip(got, ref):
             assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int32))
+
+
+@pytest.fixture(scope="module")
+def chunk_case():
+    """Keys and points of chunk_scan_inputs, with the JAX loop scans of
+    them (segmented, and suffix) as references."""
+    from tpukzg.curve.weierstrass_lm import G1_LM as JG1
+    from tpukzg.msm.scan import seg_scan as jseg, suffix_scan as jsuf
+    pts, seg = chunk_scan_inputs(7)
+    ju = tuple(c.astype(np.uint32) for c in pts)
+    ref_seg = jseg(JG1.add, JG1.select, ju, seg, coord_axis=2, seg_axis=1,
+                   impl="loop")
+    ref_suf = jsuf(JG1.add, JG1.select, ju, coord_axis=2,
+                   batch_shape=seg.shape, scan_axis_in_batch=1, impl="loop")
+    as_t = lambda r: tuple(torch.from_numpy(np.asarray(c).astype(np.int32))
+                           for c in r)
+    return (tuple(torch.from_numpy(c) for c in pts), torch.from_numpy(seg),
+            as_t(ref_seg), as_t(ref_suf))
+
+
+@pytest.mark.parametrize("sizes", [(3,), (4,), (8,), (16, 4)],
+                         ids=["c3", "c4", "c8", "c16r4"])
+def test_seg_scan_chunked_vs_loop_scan(chunk_case, sizes):
+    """The kernel's three passes in tensor code (chunks of 3, 4 and 8
+    lanes; and chunks of 16 scanned as runs of 4, as a block scans its
+    threads' runs) against the JAX loop scans: affine-equal in every
+    lane, the suffix scan through the same code with one key."""
+    tp, ts, ref_seg, ref_suf = chunk_case
+    got = bucket.seg_scan_chunked(tp, ts, sizes)
+    assert bool(G1_LM_PLAIN.eq(got, ref_seg).all())
+    assert bool(G1_LM_PLAIN.eq(got, bucket.seg_scan_plain(tp, ts)).all())
+    rev = tuple(torch.flip(c, dims=[2]) for c in tp)
+    got = bucket.seg_scan_chunked(rev, torch.zeros_like(ts), sizes)
+    got = tuple(torch.flip(c, dims=[2]) for c in got)
+    assert bool(G1_LM_PLAIN.eq(got, ref_suf).all())
 
 
 @pytest.mark.slow

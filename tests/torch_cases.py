@@ -62,6 +62,21 @@ def scan_inputs(g, n, seed, nkeys=5):
     return coords, seg
 
 
+def chunk_scan_inputs(seed):
+    """(24, 5, 31) coords from the SRS points under five rows of sorted
+    keys that probe a chunked scan: digit-0 lanes and a segment of 20
+    lanes (spanning >= 3 chunks of up to 8 lanes); segments of 4 (chunk
+    edges on segment edges) and of 5 lanes (off them); all keys equal
+    (the suffix scan's single segment); all keys distinct."""
+    n = 31
+    pts, _ = scan_inputs(5, n, seed)
+    lane = np.arange(n)
+    seg = np.stack([np.where(lane < 3, 0, np.where(lane < 23, 1, 2)),
+                    lane // 4, lane // 5, np.zeros(n, np.int64),
+                    lane]).astype(np.int32)
+    return pts, seg
+
+
 def ntt_inputs(k, n, seed):
     """(k, n, 16) Montgomery Fr limbs, int32; the first three elements of
     polynomial 0 are 0, 1 and r - 1."""

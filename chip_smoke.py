@@ -2,12 +2,14 @@
 """Drive the PyTorch/CUDA port (src/tpukzg_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # one card, no arguments
+    python3 chip_smoke.py --bary SRC # barycentric_eval of SRC/tpukzg_torch
+                                     # alone, timed (see bary_main)
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit) and torch's CUDA version;
   2. the kernels built from csrc/ (nvcc), with the build seconds, and
      each source's kernels with their registers and spill (ptxas);
-     B2 and B3 must spill nothing;
+     B2, B3, B4 and B5 must spill nothing;
   3. B1 montmul (Fp, Fr; 2^20 lanes) and B2 ec_add (2^16 lanes) against
      their plain tensor versions, bit for bit;
   4. the main path: verify_blob_kzg_proof_batch on the n=4096 SRS and the
@@ -29,11 +31,14 @@ Phases, each printed on its own line:
      openings accepted by Kzg.verify_batch (and one wrong y refused);
   7. B5 NTT against its plain version on the prover path's own
      (16, 4096) inputs, both directions, and at n = 2^18 (one seeded
-     polynomial, the multi-pass branch); B3 on one chunk the fixed-base
-     MSM launched (rows of 98,304 lanes) and on one of its suffix scans,
-     each twice; every B3 check reports the grid of each device kernel
-     the launcher ran, and the fixed-base chunk's local pass must run at
-     least one block an SM;
+     polynomial, at most 3 passes); B4 on the proof batch's own
+     (16, 4096) input (one z moved in-domain); B3 on one chunk the
+     fixed-base MSM launched (rows of 98,304 lanes) and on one of its
+     suffix scans, each twice; every B3, B4 and B5 check reports the grid
+     the launcher ran, and the fixed-base chunk's local pass, B5's first
+     pass at (16, 4096) and B4 at k = 16 must each run at least one block
+     an SM; then B5 and B4 timed at other splits and grids than the
+     launchers' (the evidence for their choice);
   8. one JSON line of kernel numbers, then the result line.
 Any failure exits non-zero before the result line.  The script never
 falls back to the CPU and imports neither JAX nor the JAX package.
@@ -105,6 +110,36 @@ def cuda_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps: int, calls: int = 10) -> float:
+    """The device time of one fn(): `calls` calls captured in one CUDA
+    graph, the graph replayed `reps` times between two CUDA events.  No
+    host time counts: for a wrapper whose kernels take microseconds, a
+    CUDA-event time around one call measures the host (cuda_ms).  The
+    torch.profiler sums of kernel intervals are not used for this: on
+    the card's machine they disagreed with these times for such short
+    kernels."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        g.replay()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / (reps * calls)
 
 
 def timed_once(torch, fn):
@@ -195,7 +230,8 @@ def short_name(name: str, known) -> str:
 
 def ptxas_summary(log: str):
     """{source: {kernel: {"registers": r, "spill_bytes": s}}} from the
-    `nvcc -Xptxas -v` build log (spill = stores + loads)."""
+    `nvcc -Xptxas -v` build log (spill = stores + loads); a kernel
+    template's instances as kernel<0>, kernel<FpT>, ..."""
     out, src, fn, known = {}, None, None, kernel_names()
     for line in log.splitlines():
         if line.startswith("== "):
@@ -206,6 +242,9 @@ def ptxas_summary(log: str):
                       r"for) '?(\w+)", line)
         if m:
             fn = short_name(m.group(1), known)
+            arg = re.search(r"I(?:Li(\d+)|N2tk\d(\w+?))E", m.group(1))
+            if arg:                             # kernel<0>, kernel<FpT>
+                fn += f"<{arg[1] or arg[2]}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and src and fn:
@@ -359,6 +398,7 @@ def check_fractree(torch, evals, z, roots, plan, reps: int):
         return FR_PLAIN.mul(_fraction_merge(a, b, FR_PLAIN), n_inv)
 
     a, b = fractree.fractree_partials(evals, z, roots)
+    grid = dict(fractree.last_grid)
     got = FR_PLAIN.mul(_fraction_merge(a, b, FR_PLAIN), n_inv)
     want = plain()
     torch.cuda.synchronize()
@@ -366,33 +406,90 @@ def check_fractree(torch, evals, z, roots, plan, reps: int):
     check(err == 0, f"fractree: y differs from plain (max err {err})")
     check(bool((got[0] == evals[0, 5]).all().item()),
           "fractree: in-domain y != e_m")
-    ms = cuda_ms(torch, lambda: fractree.fractree_partials(evals, z, roots),
-                 reps)
+    ms = graph_ms(torch, lambda: fractree.fractree_partials(evals, z, roots),
+                  reps)
+    call_ms = cuda_ms(torch, lambda: fractree.fractree_partials(evals, z,
+                                                                roots), reps)
     pms = cuda_ms(torch, plain, 1)
     k, n, _ = evals.shape
-    chunks = n // min(n, fractree.CHUNK)
-    muls = k * (n + 3 * (n - chunks))
-    bms, by = bound_ms(k * n * 64 + n * 64 + k * 64 + 2 * k * chunks * 64,
+    # the whole reduction, whatever the design: the fewest Fr products
+    # known, 3 (n - 1) merges of (A', B, S) and 2 for A = z A' - S B, a
+    # blob; e, the roots and z read once, one (A, B) pair a blob written
+    muls = k * (3 * n - 1)
+    bms, by = bound_ms(k * n * 64 + n * 64 + k * 64 + 2 * k * 64,
                        muls * montmul_ops(8))
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, shape=[k, n, 16],
+                bound_by=by, shape=[k, n, 16], grid=grid, call_ms=call_ms,
                 check="y bit-exact, one in-domain z")
 
 
 def check_ntt(torch, x, plan, inverse: bool, reps: int):
     from tpukzg_torch.kernels import ntt as kntt
     got = kntt.ntt(x, plan, inverse)
+    grid = [dict(p) for p in kntt.last_grid]
     want, pms = timed_once(torch, lambda: kntt.ntt_plain(x, plan, inverse))
     err = int((got.long() - want.long()).abs().max().item())
     check(err == 0, f"ntt {tuple(x.shape)} inverse={inverse}: kernel != "
           f"plain (max err {err})")
-    ms = cuda_ms(torch, lambda: kntt.ntt(x, plan, inverse), reps)
+    ms = graph_ms(torch, lambda: kntt.ntt(x, plan, inverse), reps)
+    call_ms = cuda_ms(torch, lambda: kntt.ntt(x, plan, inverse), reps)
     k, n = x.numel() // (16 * plan.n), plan.n
     muls = k * (n // 2) * plan.log_n + (k * n if inverse else 0)
     bms, by = bound_ms(2 * k * n * 64 + (n // 2) * 64 + 64,
                        muls * montmul_ops(8))
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, shape=[k, n, 16], inverse=inverse)
+                bound_by=by, shape=[k, n, 16], inverse=inverse, grid=grid,
+                call_ms=call_ms)
+
+
+def alternatives(torch, ntt_x, big_x, plan, big, ft_in, reps: int):
+    """B5 and B4 at other splits and grids than their launchers choose,
+    each bit-exact against the launcher's choice -> {kernel: {config: ms
+    on the card (graph_ms)}}.  B5 configs: the stages of each pass / the
+    groups a block; B4: parts a blob x threads a block."""
+    from tpukzg_torch.kernels import fractree, ntt as kntt
+    out = {}
+    for key, x, pl, cfgs in (
+            ("ntt_16x4096", ntt_x, plan, [(12,), (6, 6), (4, 4, 4)]),
+            ("ntt_1x2^18", big_x, big, [(9, 9), (6, 6, 6)])):
+        want = kntt.ntt(x, pl)
+        times = {}
+        for split in cfgs:
+            for lg in range(4):
+                s0, passes = 0, []
+                for st in split:
+                    room = pl.log_n - st if s0 == 0 else s0
+                    if lg > room or st + lg > 12:
+                        break
+                    passes.append((s0, s0 + st, lg))
+                    s0 += st
+                if len(passes) < len(split):
+                    continue
+                got = kntt._launch(x, pl, False, passes)
+                check(torch.equal(got, want), f"B5 {key} {passes} differs")
+                name = "+".join(map(str, split)) + f"/G{1 << lg}"
+                times[name] = graph_ms(
+                    torch, lambda: kntt._launch(x, pl, False, passes), reps)
+        times["launcher"] = graph_ms(torch, lambda: kntt._launch(x, pl),
+                                      reps)
+        out[key] = times
+    for key, (evals, z, roots), cfgs in (
+            ("fractree_k16", ft_in[16], [(16, 32), (16, 64), (16, 256),
+                                         (32, 64), (64, 32)]),
+            ("fractree_k256", ft_in[256], [(1, 128), (1, 256), (2, 128),
+                                           (4, 64)])):
+        want = fractree._launch(evals, z, roots)
+        times = {}
+        for parts, threads in cfgs + [(None, None)]:
+            got = fractree._launch(evals, z, roots, parts, threads)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"B4 {key} parts={parts} threads={threads} differs")
+            name = f"{parts}x{threads}" if parts else "launcher"
+            times[name] = graph_ms(
+                torch, lambda: fractree._launch(evals, z, roots, parts,
+                                                threads), reps)
+        out[key] = times
+    return out
 
 
 def run_path(torch, fn):
@@ -409,12 +506,12 @@ def run_path(torch, fn):
 
 def prover_path(torch, ts, say_path):
     """Steps 1-3 of the prover slice on the 16 fixture blobs.  Returns
-    (launches by path, captured fixed-base B3 chunk and suffix scan, NTT
-    inputs)."""
+    (launches by path, captured fixed-base B3 chunk and suffix scan and
+    the proof batch's B4 input, NTT inputs)."""
     import tpukzg_torch
     from tpukzg_torch.curve import g1 as g1m
     from tpukzg_torch.field.mont import FR, R_MOD
-    from tpukzg_torch.kernels import bucket
+    from tpukzg_torch.kernels import bucket, fractree
     from tpukzg_torch.kzg import transcript
     from tpukzg_torch.kzg.fixtures import load_triples
 
@@ -448,9 +545,19 @@ def prover_path(torch, ts, say_path):
     say_path(f"commit_batch k={k}", wall, paths["commit_batch"])
     check(got_cs == cs, "commitments differ from the fixture's: "
           f"{[i for i in range(k) if got_cs[i] != cs[i]]}")
-    got_pfs, wall, paths["proof_batch"] = run_path(
-        torch, lambda: tpukzg_torch.compute_blob_kzg_proof_batch(blobs, cs,
-                                                                 ts))
+    orig_ft = fractree.fractree_partials
+
+    def rec_ft(evals, z, roots):
+        captured.setdefault("fractree", (evals, z, roots))
+        return orig_ft(evals, z, roots)
+
+    fractree.fractree_partials = rec_ft
+    try:
+        got_pfs, wall, paths["proof_batch"] = run_path(
+            torch, lambda: tpukzg_torch.compute_blob_kzg_proof_batch(
+                blobs, cs, ts))
+    finally:
+        fractree.fractree_partials = orig_ft
     say_path(f"proof_batch k={k}", wall, paths["proof_batch"])
     check(got_pfs == pfs, "proofs differ from the fixture's: "
           f"{[i for i in range(k) if got_pfs[i] != pfs[i]]}")
@@ -557,7 +664,7 @@ def main() -> int:
     ptxas = ptxas_summary(_build.build_info.get("log", ""))
     for src in sorted(ptxas):
         say(f"[ptxas {src}] {json.dumps(ptxas[src])}")
-    for src in ("bucket.cu", "ec.cu"):
+    for src in ("bucket.cu", "ec.cu", "ntt.cu", "fractree.cu"):
         check(ptxas.get(src), f"no ptxas report for {src} in the build log")
         spilled = {k: v for k, v in ptxas[src].items()
                    if v.get("spill_bytes", 0)}
@@ -687,8 +794,9 @@ def main() -> int:
     evals, z, roots = captured["fractree"]
     r = check_fractree(torch, evals, z, roots, ts.setup.plan, REPS)
     results["fractree"] = r
-    say(f"[B4 fractree {r['shape']}] ok, {r['check']}: {r['ms']:.3f} ms "
-        f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms)")
+    say(f"[B4 fractree {r['shape']}] ok, {r['check']}: {r['ms']:.4f} ms on "
+        f"the card, {r['call_ms']:.4f} ms a call (plain {r['plain_ms']:.1f} "
+        f"ms, bound {r['bound_ms']:.4f} ms; grid {json.dumps(r['grid'])})")
 
     # 6. the prover path
     def say_path(name, wall, launches, extra=""):
@@ -698,8 +806,9 @@ def main() -> int:
     paths, cap_fixed, ntt_in = prover_path(torch, ts, say_path)
     paths["verify"] = launches
 
-    # 7. B5 and the fixed-base B3 on the prover path's own inputs
+    # 7. B5, B4 and the fixed-base B3 on the prover path's own inputs
     from tpukzg_torch.ntt.ntt import get_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = ts.setup.plan
     nr = {}
     for name, x, inv in (("fwd", ntt_in["fwd"], False),
@@ -707,8 +816,12 @@ def main() -> int:
         r = check_ntt(torch, x, plan, inv, REPS)
         nr[name] = r
         say(f"[B5 ntt {r['shape']} inverse={inv}] ok, bit-exact: "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
+            f"{r['ms']:.4f} ms on the card, {r['call_ms']:.4f} ms a call "
+            f"(plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; passes {json.dumps(r['grid'])})")
+        blocks = r["grid"][0]["blocks"]
+        check(blocks >= sms, f"B5 {r['shape']} ran its first pass on "
+              f"{blocks} blocks, {sms} SMs")
     t0 = time.perf_counter()
     big = get_plan(1 << 18)
     say(f"[B5 ntt] n = 2^18 plan on the host in "
@@ -720,15 +833,28 @@ def main() -> int:
         r = check_ntt(torch, lim, big, inv, REPS)
         nr[name] = r
         say(f"[B5 ntt {r['shape']} inverse={inv}] ok, bit-exact: "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
+            f"{r['ms']:.4f} ms on the card, {r['call_ms']:.4f} ms a call "
+            f"(plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; passes {json.dumps(r['grid'])})")
+        check(len(r["grid"]) <= 3, f"B5 at 2^18 ran {len(r['grid'])} passes")
     r = dict(nr["fwd"])
     r["check"] = ("bit-exact vs plain: (16, 4096) fwd and inv on the "
                   "prover path's own inputs, (1, 2^18) fwd and inv")
-    r["other_shapes"] = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "shape")}
-                         for k, v in nr.items() if k != "fwd"}
+    r["other_shapes"] = {k: {f: v[f] for f in (
+        "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape",
+        "grid")} for k, v in nr.items() if k != "fwd"}
     results["ntt"] = r
+    check("fractree" in cap_fixed, "no proof-batch B4 input was captured")
+    f16 = check_fractree(torch, *cap_fixed["fractree"], plan, REPS)
+    say(f"[B4 fractree {f16['shape']}, the proof batch's] ok, "
+        f"{f16['check']}: {f16['ms']:.4f} ms on the card, "
+        f"{f16['call_ms']:.4f} ms a call (plain {f16['plain_ms']:.1f} ms, "
+        f"bound {f16['bound_ms']:.4f} ms; grid {json.dumps(f16['grid'])})")
+    check(f16["grid"]["blocks"] >= sms, f"B4 at k = 16 ran "
+          f"{f16['grid']['blocks']} blocks on {sms} SMs")
+    results["fractree"]["other_shapes"] = {"proof_batch": {
+        f: f16[f] for f in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                            "bound_ms", "bound_by", "shape", "grid")}}
     check("fixed" in cap_fixed, "no fixed-base scan chunk was captured")
     pts, seg = cap_fixed["fixed"]
     r = check_bucket(torch, pts, seg, REPS)
@@ -749,10 +875,19 @@ def main() -> int:
         f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
         f"{r['bound_by']}, {r['adds']} adds; device kernels launched and "
         f"their blocks {json.dumps(r['grid'])})")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = r["grid"].get("scan_local", 0)
     check(blocks >= sms, f"fixed-base B3 ran {blocks} blocks on "
           f"{sms} SMs")
+
+    alt = alternatives(torch, ntt_in["fwd"], lim, plan, big,
+                       {16: cap_fixed["fractree"], 256: captured["fractree"]},
+                       REPS)
+    for key, times in alt.items():
+        say(f"[alternatives {key}] ms {json.dumps(times)}")
+    results["ntt"]["alternatives"] = {k: v for k, v in alt.items()
+                                      if k.startswith("ntt")}
+    results["fractree"]["alternatives"] = {k: v for k, v in alt.items()
+                                           if k.startswith("fractree")}
 
     # 8. report
     meta = {
@@ -775,7 +910,8 @@ def main() -> int:
     path_of = {"bucket_scan_fixed": ("commit_batch", "bucket_scan"),
                "ntt": ("coeff", "ntt")}
     regs = {"ec_add": ptxas["ec.cu"], "bucket_scan": ptxas["bucket.cu"],
-            "bucket_scan_fixed": ptxas["bucket.cu"]}
+            "bucket_scan_fixed": ptxas["bucket.cu"],
+            "fractree": ptxas["fractree.cu"], "ntt": ptxas["ntt.cu"]}
     kernels = []
     for name, (src, repl) in meta.items():
         r = results[name]
@@ -791,7 +927,9 @@ def main() -> int:
                             bound_by=r["bound_by"], library_ms=None,
                             shape=r["shape"], check=r.get("check", ""),
                             **{k: r[k] for k in ("other_shapes", "grid",
-                                                 "device_kernels")
+                                                 "device_kernels",
+                                                 "call_ms",
+                                                 "alternatives")
                                if k in r},
                             **({"ptxas": regs[name]} if name in regs
                                else {})))
@@ -803,9 +941,64 @@ def main() -> int:
     return 0
 
 
+def bary_main(src: str) -> int:
+    """`chip_smoke.py --bary SRC`: the barycentric evaluation of the
+    package SRC/tpukzg_torch alone, at the proof batch's shape (16 blobs
+    of 4096; seeded evals and z, z_0 = w^5) -> one JSON line: ms a call
+    of barycentric_eval and of B4 with the host's merge (CUDA events
+    around one call), the same on the card (graph_ms), the port's
+    launches in one call, and a digest of y.  Run it on two trees in
+    one machine call to compare them."""
+    import hashlib
+    import torch
+    if not torch.cuda.is_available():
+        say("FAIL: torch.cuda.is_available() is false; this script needs a "
+            "CUDA card")
+        return 1
+    sys.path.insert(0, os.path.abspath(src))
+    from tpukzg_torch.kernels import _build, fractree
+    from tpukzg_torch.ntt.ntt import get_plan
+    from tpukzg_torch.poly.poly import _fraction_merge, barycentric_eval
+    assert "jax" not in sys.modules and "tpukzg" not in sys.modules
+    _build.lib()
+    plan = get_plan(4096)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0xBA7)
+    evals = torch.randint(0, 1 << 16, (16, 4096, 16), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    z = torch.randint(0, 1 << 16, (16, 16), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    evals[..., 15] &= 0x3FFF                   # below 2^254 < r
+    z[..., 15] &= 0x3FFF
+    roots = torch.as_tensor(plan.roots, device="cuda")
+    z[0] = roots[5]
+
+    def tree():
+        return _fraction_merge(*fractree.fractree_partials(evals, z, roots))
+
+    y = barycentric_eval(plan, evals, z, roots)
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    barycentric_eval(plan, evals, z, roots)
+    launches = dict(_build.launches)
+    out = dict(
+        src=src, shape=[16, 4096, 16], launches=launches,
+        call_ms=cuda_ms(torch, lambda: barycentric_eval(plan, evals, z,
+                                                        roots), REPS),
+        merge_call_ms=cuda_ms(torch, tree, REPS),
+        merge_ms=graph_ms(torch, tree, REPS),
+        y_sha256=hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16])
+    say(f"[card] {card_line()}")
+    say(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     try:
-        rc = main()
+        if sys.argv[1:2] == ["--bary"] and len(sys.argv) == 3:
+            rc = bary_main(sys.argv[2])
+        else:
+            rc = main()
     except Fail as e:
         print(f"FAIL: {e}", flush=True)
         rc = 1

@@ -29,6 +29,10 @@ static __constant__ uint32_t kFpOne[12] = {
 static __constant__ uint32_t kFrP[8] = {
     0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
     0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
+// R mod r: the Montgomery form of 1 in Fr
+static __constant__ uint32_t kFrOne[8] = {
+    0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
+    0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
 
 struct FpT {
   static constexpr int N = 12;
@@ -158,6 +162,34 @@ __device__ __forceinline__ void store_limbs(int32_t* p, long long ls,
     p[(2 * j) * ls] = (int32_t)(w[j] & 0xffffu);
     p[(2 * j + 1) * ls] = (int32_t)(w[j] >> 16);
   }
+}
+
+// One int4 (four 16-bit limbs, one per int32) <-> two words.
+__device__ __forceinline__ void int4_words(uint32_t* w, int4 v) {
+  w[0] = ((uint32_t)v.x & 0xffffu) | ((uint32_t)v.y << 16);
+  w[1] = ((uint32_t)v.z & 0xffffu) | ((uint32_t)v.w << 16);
+}
+
+__device__ __forceinline__ int4 words_int4(uint32_t w0, uint32_t w1) {
+  return make_int4((int32_t)(w0 & 0xffffu), (int32_t)(w0 >> 16),
+                   (int32_t)(w1 & 0xffffu), (int32_t)(w1 >> 16));
+}
+
+// The contiguous limbs of one element at p (16-byte aligned) -> words,
+// as F::N / 2 read-only 16-byte loads.  Nothing may write *p while the
+// kernel runs.
+template <class F>
+__device__ __forceinline__ void load_words_v4(uint32_t* w, const int32_t* p) {
+  const int4* q = reinterpret_cast<const int4*>(p);
+#pragma unroll
+  for (int c = 0; c < F::N / 2; ++c) int4_words(w + 2 * c, __ldg(q + c));
+}
+
+template <class F>
+__device__ __forceinline__ void store_limbs_v4(int32_t* p, const uint32_t* w) {
+  int4* q = reinterpret_cast<int4*>(p);
+#pragma unroll
+  for (int c = 0; c < F::N / 2; ++c) q[c] = words_int4(w[2 * c], w[2 * c + 1]);
 }
 
 }  // namespace tk

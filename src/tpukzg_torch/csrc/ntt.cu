@@ -1,133 +1,148 @@
-// B5: radix-2 NTT / iNTT over Fr, all stages, with the inverse's 1/n.
+// B5: radix-2 NTT / iNTT over Fr as a few passes, each a range of stages
+// on independent groups of elements, with the inverse's 1/n.
 //
 // Replaces tpukzg/pallas/ntt.py::_ntt_kernel.  On the TPU one grid step
 // held a polynomial in a VMEM tile; each stage paired lanes with two
 // rolls and a parity mask and multiplied ALL n lanes by a per-lane
 // twiddle table of (log n, 16, n) limbs, and the bit-reversal was a
-// gather outside the kernel.  Here:
+// gather outside the kernel.
 //
-//  * ntt_block_kernel: one block per chunk of m = min(n, 4096) elements
-//    of one polynomial.  The load repacks 16-bit limbs into 8 words and
-//    applies the bit-reversal (chunk c holds positions c m .. c m + m - 1
-//    of the bit-reversed order).  The words sit in shared memory
-//    word-major (sm[w m + i], 32 m bytes: 128 KB at m = 4096), so
-//    neighbouring threads touch neighbouring banks.  Stages 0 .. log m - 1
-//    stay inside a chunk; each thread does m / (2 T) butterflies a stage,
-//    one barrier between stages.  With m = n the whole transform runs
-//    here and the inverse's 1/n multiplies on the way out.
-//  * ntt_stage_kernel: a stage s >= log m (only for n > 4096) as one pass
-//    over device memory, one thread per butterfly, in place.
+// What bounds it on the H100: integer multiplies.  A polynomial takes
+// (n/2) log2 n Fr products (about 540 operations each: 136 word
+// products of two multiply-adds) against one read and one write of 64
+// bytes an element, so the multiply units, not memory, set the floor;
+// the kernel's job is to keep all 132 SMs multiplying.  Giving one
+// polynomial one block (the first port) held 16 of 132 SMs at the
+// prover's batch of 16, through 12 barrier-separated stages.
+//
+// Design: stages s0 .. s1-1 of a DIT NTT pair only indices that differ
+// in bits s0 .. s1-1, so the m = 2^(s1-s0) elements that agree on every
+// other bit form an independent group, at stride 2^s0.  One kernel,
+// ntt_pass_kernel, runs the stages [s0, s1) of G such groups a block:
+//  * groups whose low bits (those below s0) are consecutive, so that for
+//    each of the m group positions the block reads G neighbouring
+//    elements; each element moves as four 16-byte loads (int4), its
+//    16-bit limbs repacked into 8 words in registers;
+//  * the words sit in shared memory word-major with rows of G m + 4
+//    words, so that the repacking's stores and loads fall in 32
+//    distinct banks; each thread takes one butterfly a stage, one
+//    barrier between stages;
+//  * the first pass (s0 = 0) applies the bit-reversal in its load: its
+//    G groups are those whose bit-reversed high bits are consecutive,
+//    which again makes each position's G sources neighbours;
+//  * the last pass of the inverse multiplies by 1/n on the way out.
+// The launcher (kernels/ntt.py) cuts log2 n into passes (n <= 64: one;
+// n = 4096: 6 + 6 stages; n = 2^18: 9 + 9) and picks the fewest groups
+// that fill a warp: at the prover's (16, 4096) G = 1 and 1,024 blocks a
+// pass, 7.8 an SM.
+// Later passes read and write the output in place: a block touches only
+// its own groups' elements.
 //
 // Twiddles: one table of n/2 roots (w^j, or w^-j for the inverse), stage
-// s taking root j (n >> (s+1)) -- n/2 products a stage instead of n.
-//
-// What bounds it on the H100: integer multiplies, (n/2) log2 n Fr
-// products a polynomial (~540 word multiply-adds each) against one read
-// and one write of 64 bytes an element.  This first version gives a
-// polynomial at n = 4096 one block, so a batch of 16 fills 16 of the 132
-// SMs; spreading a polynomial over several blocks is left for later.
+// s taking root j (n >> (s+1)), j = the index's bits below s.  Fr
+// products: mont_mul<FrT> (field.cuh's CIOS in 64-bit C); the same CIOS
+// as PTX carry chains ran slower on the H100 (PERF.md).
 #include "field.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxElems = 4096;   // elements a block holds: 128 KB of words
+constexpr int kPad = 4;           // words after each shared-memory row
 
-__device__ __forceinline__ long long bit_reverse(long long i, int log_n) {
-  return (long long)(__brevll((unsigned long long)i) >> (64 - log_n));
+__device__ __forceinline__ long long brev(long long i, int bits) {
+  return bits == 0 ? 0
+                   : (long long)(__brevll((unsigned long long)i) >> (64 - bits));
 }
 
-__device__ __forceinline__ void butterfly(uint32_t* u, uint32_t* v,
-                                          const uint32_t* w) {
-  uint32_t t[8];
-  tk::mont_mul<tk::FrT>(v, v, w);  // v <- w v
-  tk::add_mod<tk::FrT>(t, u, v);   // u + w v
-  tk::sub_mod<tk::FrT>(v, u, v);   // u - w v
-  tk::copy<tk::FrT>(u, t);
-}
-
-// x, out (k, n, 16) int32 limbs; tw (n/2, 16); scale (16,) = 1/n (mont)
-__global__ void __launch_bounds__(kThreads)
-ntt_block_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x,
-                 const int32_t* __restrict__ tw,
-                 const int32_t* __restrict__ scale, long long n, int log_n,
-                 int m, int log_m, int apply_scale) {
+// Stages [s0, s1) of k DIT NTTs of size n = 2^log_n, G = 2^log_g groups
+// a block.  src, dst (k, n, 16) int32 limbs (dst is src when s0 > 0);
+// tw (n/2, 16); scale (16,) = 1/n (Montgomery).
+__global__ void __launch_bounds__(kMaxThreads)
+ntt_pass_kernel(int32_t* dst, const int32_t* src,
+                const int32_t* __restrict__ tw,
+                const int32_t* __restrict__ scale, int log_n, int s0, int s1,
+                int log_g, int apply_scale) {
   extern __shared__ uint32_t sm[];
-  const long long chunks = n >> log_m;
-  const long long poly = blockIdx.x / chunks;
-  const long long base = (blockIdx.x % chunks) * m;
-  const int32_t* xp = x + poly * n * 16;
+  const int log_m = s1 - s0;
+  const int G = 1 << log_g;
+  const int GM = 1 << (log_m + log_g);
+  const int S = GM + kPad;
+  const long long n = 1LL << log_n;
+  const long long per_poly = n >> (log_m + log_g);
+  const long long poly = blockIdx.x / per_poly;
+  const long long b = blockIdx.x - poly * per_poly;
+  const bool first = s0 == 0;
+  // first pass: group g of the block is h = h0 + g, at DIT positions
+  // brev(h) 2^s1 + jj, read from brev(jj) 2^(log_n - s1) + h.  Later
+  // passes: positions hi 2^s1 + jj 2^s0 + lo0 + g, in place.
+  const long long h0 = b << log_g;
+  const long long hi = first ? 0 : b >> (s0 - log_g);
+  const long long lo0 =
+      first ? 0 : (b & ((1LL << (s0 - log_g)) - 1)) << log_g;
+  const int32_t* sp = src + poly * n * 16;
+  int32_t* dp = dst + poly * n * 16;
 
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    uint32_t w[8];
-    tk::load_words<tk::FrT>(w, xp + bit_reverse(base + i, log_n) * 16, 1);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sm[j * m + i] = w[j];
+  // element e = jj G + g of the block, 16-byte piece c: thread q = 4 e + c
+  for (int q = threadIdx.x; q < 4 * GM; q += blockDim.x) {
+    const int e = q >> 2, c = q & 3;
+    const int jj = e >> log_g, g = e & (G - 1);
+    const long long at =
+        first ? (brev(jj, log_m) << (log_n - s1)) | (h0 + g)
+              : (hi << s1) | ((long long)jj << s0) | (lo0 + g);
+    uint32_t w[2];
+    tk::int4_words(w, reinterpret_cast<const int4*>(sp + at * 16)[c]);
+    sm[(2 * c) * S + e] = w[0];
+    sm[(2 * c + 1) * S + e] = w[1];
   }
+  uint32_t sc[8];
+  if (apply_scale) tk::load_words_v4<tk::FrT>(sc, scale);
   __syncthreads();
 
-  for (int s = 0; s < log_m; ++s) {
-    const int half = 1 << s;
-    const long long tstep = n >> (s + 1);
-    for (int b = threadIdx.x; b < (m >> 1); b += blockDim.x) {
-      const int j = b & (half - 1);
-      const int i0 = ((b >> s) << (s + 1)) | j;
-      const int i1 = i0 + half;
+  for (int t = 0; t < log_m; ++t) {
+    const int tshift = log_n - (s0 + t) - 1;   // n >> (s+1) = 2^tshift
+    const bool out_scale = apply_scale && t == log_m - 1;
+    for (int bf = threadIdx.x; bf < (GM >> 1); bf += blockDim.x) {
+      const int g = bf & (G - 1);
+      const int bb = bf >> log_g;
+      const int j = bb & ((1 << t) - 1);
+      const int e0 = ((((bb >> t) << (t + 1)) | j) << log_g) | g;
+      const int e1 = e0 + (G << t);
+      // the index's bits below s: j above s0, the group's low bits below
+      const long long lo = first ? 0 : lo0 + g;
+      const long long ti = ((long long)j << s0 | lo) << tshift;
       uint32_t u[8], v[8], w[8];
+      tk::load_words_v4<tk::FrT>(w, tw + ti * 16);
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
-        u[q] = sm[q * m + i0];
-        v[q] = sm[q * m + i1];
+        u[q] = sm[q * S + e0];
+        v[q] = sm[q * S + e1];
       }
-      tk::load_words<tk::FrT>(w, tw + (long long)j * tstep * 16, 1);
-      butterfly(u, v, w);
+      tk::mont_mul<tk::FrT>(v, v, w);   // w v
+      tk::add_mod<tk::FrT>(w, u, v);    // u + w v
+      tk::sub_mod<tk::FrT>(v, u, v);    // u - w v
+      if (out_scale) {
+        tk::mont_mul<tk::FrT>(w, w, sc);
+        tk::mont_mul<tk::FrT>(v, v, sc);
+      }
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
-        sm[q * m + i0] = u[q];
-        sm[q * m + i1] = v[q];
+        sm[q * S + e0] = w[q];
+        sm[q * S + e1] = v[q];
       }
     }
     __syncthreads();
   }
 
-  uint32_t sc[8];
-  if (apply_scale) tk::load_words<tk::FrT>(sc, scale, 1);
-  int32_t* op = out + (poly * n + base) * 16;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    uint32_t w[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) w[j] = sm[j * m + i];
-    if (apply_scale) tk::mont_mul<tk::FrT>(w, w, sc);
-    tk::store_limbs<tk::FrT>(op + (long long)i * 16, 1, w);
+  for (int q = threadIdx.x; q < 4 * GM; q += blockDim.x) {
+    const int e = q >> 2, c = q & 3;
+    const int jj = e >> log_g, g = e & (G - 1);
+    const long long at =
+        first ? (brev(h0 + g, log_n - s1) << s1) | jj
+              : (hi << s1) | ((long long)jj << s0) | (lo0 + g);
+    reinterpret_cast<int4*>(dp + at * 16)[c] =
+        tk::words_int4(sm[(2 * c) * S + e], sm[(2 * c + 1) * S + e]);
   }
-}
-
-// one stage s over a (k, n, 16) array in place
-__global__ void __launch_bounds__(256)
-ntt_stage_kernel(int32_t* __restrict__ a, const int32_t* __restrict__ tw,
-                 const int32_t* __restrict__ scale, long long k, long long n,
-                 int s, int apply_scale) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long per = n >> 1;
-  if (t >= k * per) return;
-  const long long poly = t / per;
-  const long long b = t - poly * per;
-  const long long half = 1LL << s;
-  const long long j = b & (half - 1);
-  const long long i0 = ((b >> s) << (s + 1)) | j;
-  int32_t* p0 = a + (poly * n + i0) * 16;
-  int32_t* p1 = p0 + half * 16;
-  uint32_t u[8], v[8], w[8];
-  tk::load_words<tk::FrT>(u, p0, 1);
-  tk::load_words<tk::FrT>(v, p1, 1);
-  tk::load_words<tk::FrT>(w, tw + j * (n >> (s + 1)) * 16, 1);
-  butterfly(u, v, w);
-  if (apply_scale) {
-    tk::load_words<tk::FrT>(w, scale, 1);
-    tk::mont_mul<tk::FrT>(u, u, w);
-    tk::mont_mul<tk::FrT>(v, v, w);
-  }
-  tk::store_limbs<tk::FrT>(p0, 1, u);
-  tk::store_limbs<tk::FrT>(p1, 1, v);
 }
 
 int log2_exact(long long v) {
@@ -136,38 +151,48 @@ int log2_exact(long long v) {
   return (1LL << l) == v ? l : -1;
 }
 
-}  // namespace
+bool smem_attr_set[64];
 
-// stages 0 .. log2(m) - 1 of k NTTs of size n, chunks of m in shared memory
-extern "C" int tpukzg_ntt_block(void* out, const void* x, const void* tw,
-                                const void* scale, long long k, long long n,
-                                long long m, int apply_scale, void* stream) {
-  const int log_n = log2_exact(n);
-  const int log_m = log2_exact(m);
-  if (log_n < 1 || log_m < 1 || m > n || m > 4096) return (int)cudaErrorInvalidValue;
-  const int threads = (int)(m / 2 < kThreads ? m / 2 : kThreads);
-  const size_t smem = (size_t)8 * m * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      ntt_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = k * (n / m);
-  ntt_block_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      (int32_t*)out, (const int32_t*)x, (const int32_t*)tw,
-      (const int32_t*)scale, n, log_n, (int)m, log_m, apply_scale);
-  return (int)cudaGetLastError();
+cudaError_t set_smem_attr() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && smem_attr_set[dev])) return err;
+  const int bytes = (int)(8 * (kMaxElems + kPad) * sizeof(uint32_t));
+  err = cudaFuncSetAttribute(ntt_pass_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) smem_attr_set[dev] = true;
+  return err;
 }
 
-// stage s of k NTTs of size n, in place in device memory
-extern "C" int tpukzg_ntt_stage(void* a, const void* tw, const void* scale,
-                                long long k, long long n, int s,
-                                int apply_scale, void* stream) {
+}  // namespace
+
+// Stages [s0, s1) of k NTTs of size n, 2^log_g groups a block, from src
+// (the natural-order input when s0 = 0) into dst; the inverse's 1/n when
+// apply_scale.  *blocks = the blocks launched.
+extern "C" int tpukzg_ntt_pass(void* dst, const void* src, const void* tw,
+                               const void* scale, long long k, long long n,
+                               int s0, int s1, int log_g, int apply_scale,
+                               int* blocks, void* stream) {
+  *blocks = 0;
   const int log_n = log2_exact(n);
-  if (log_n < 1 || s < 0 || s >= log_n) return (int)cudaErrorInvalidValue;
-  const long long work = k * (n / 2);
-  const long long blocks = (work + 255) / 256;
-  ntt_stage_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      (int32_t*)a, (const int32_t*)tw, (const int32_t*)scale, k, n, s,
-      apply_scale);
-  return (int)cudaGetLastError();
+  const int log_m = s1 - s0;
+  if (log_n < 1 || s0 < 0 || log_m < 1 || s1 > log_n || log_g < 0 ||
+      log_g > (s0 == 0 ? log_n - s1 : s0) ||
+      (1LL << (log_m + log_g)) > kMaxElems ||
+      (s0 == 0) == (src == dst))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem_attr();
+  if (err != cudaSuccess) return (int)err;
+  const long long gm = 1LL << (log_m + log_g);
+  const int threads = (int)(gm / 2 < kMaxThreads ? gm / 2 : kMaxThreads);
+  const size_t smem = (size_t)8 * (gm + kPad) * sizeof(uint32_t);
+  const long long grid = k * (n >> (log_m + log_g));
+  if (grid < 1 || grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  ntt_pass_kernel<<<(unsigned)grid, threads, smem, (cudaStream_t)stream>>>(
+      (int32_t*)dst, (const int32_t*)src, (const int32_t*)tw,
+      (const int32_t*)scale, log_n, s0, s1, log_g, apply_scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *blocks = (int)grid;
+  return (int)err;
 }

@@ -134,6 +134,12 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def aligned(t):
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernels move elements as 16-byte loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream

@@ -2,9 +2,9 @@
 (counterpart of ``tpukzg/poly/poly.py``).
 
 Inversion-free fraction tree:  sum_i e_i w^i / (z - w^i) = N(z) / (z^n - 1)
-and p(z) = N(z) / n, in and out of the domain alike.  The bottom of the
-tree is kernel B4 on the card (``kernels/fractree.py``); the tail folds
-here.
+and p(z) = N(z) / n, in and out of the domain alike.  On the card kernel B4
+(``kernels/fractree.py``) folds the whole tree to one pair a blob; on
+the CPU the plain leaves fold here.
 """
 
 from __future__ import annotations

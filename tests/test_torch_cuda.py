@@ -10,8 +10,6 @@ Tolerances: montmul, ec_add, the NTT and the fraction-tree numerator
 exact; the scans affine-equal (the kernel adds in chunks and runs, in
 another order than the plain `loop` scan)."""
 
-import random
-
 import pytest
 import torch
 
@@ -67,36 +65,142 @@ def test_bucket_kernel_on_card(cuda, n):
                                bucket.suffix_scan_plain(tp)).all())
 
 
-@pytest.mark.cuda
-def test_fractree_kernel_on_card(cuda):
-    from tpukzg_torch.ntt.ntt import get_plan
+def _card_fr(cuda, shape, seed):
+    """Canonical Fr limbs (below 2^254 < r) made on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(0, 1 << 16, tuple(shape) + (16,), generator=gen,
+                      device=cuda, dtype=torch.int32)
+    x[..., 15] &= 0x3FFF
+    return x
+
+
+def _y(pair, n_inv):
     from tpukzg_torch.poly.poly import _fraction_merge
-    n, k = 2048, 3
-    rng = random.Random(6)
-    plan = get_plan(n)
-    evals = torch.from_numpy(FR.to_mont_host(
-        [rng.randrange(FR.modulus) for _ in range(k * n)]).reshape(k, n, 16))
-    z = torch.from_numpy(FR.to_mont_host([rng.randrange(FR.modulus),
-                                          plan.roots_int[7], 3]))
-    roots = torch.from_numpy(plan.roots)
-    ev, zz, rr = evals.to(cuda), z.to(cuda), roots.to(cuda)
-    got = _fraction_merge(*fractree.fractree_partials(ev, zz, rr), FR_PLAIN)
-    want = _fraction_merge(*fractree.fractree_partials_plain(ev, zz, rr),
-                           FR_PLAIN)
-    assert torch.equal(got, want)
+    return FR_PLAIN.mul(_fraction_merge(*pair, FR_PLAIN), n_inv)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16, 4096, 1 << 14])
-def test_ntt_kernel_on_card(cuda, n):
-    """One block per polynomial up to n = 4096; 2^14 adds two passes."""
+@pytest.mark.parametrize("k,n", [(1, 4096), (3, 4096), (16, 4096),
+                                 (256, 4096), (3, 256), (3, 2048)])
+def test_fractree_kernel_on_card(cuda, k, n):
+    """y bit-exact against the plain leaves, with z in-domain at the first
+    element of a chunk and, in a second run, at the last; at k = 16 the
+    launcher's grid holds at least one block an SM."""
     from tpukzg_torch.ntt.ntt import get_plan
     plan = get_plan(n)
-    x = torch.from_numpy(ntt_inputs(3 if n <= 4096 else 1, n, n)).to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    parts = fractree.parts_for(k, n, sms)
+    chunk = n // parts
+    c = min(1, parts - 1)
+    evals = _card_fr(cuda, (k, n), k + n)
+    roots = torch.from_numpy(plan.roots).to(cuda)
+    n_inv = torch.from_numpy(plan.n_inv).to(cuda)
+    for m in (c * chunk, c * chunk + chunk - 1):
+        z = _card_fr(cuda, (k,), m)
+        z[0] = roots[m]
+        got = _y(fractree.fractree_partials(evals, z, roots), n_inv)
+        assert fractree.last_grid == {"parts": parts,
+                                      "threads": fractree.threads_for(chunk),
+                                      "blocks": k * parts, "fold_blocks": k}
+        assert torch.equal(got, _y(fractree.fractree_partials_plain(
+            evals, z, roots), n_inv))
+        assert torch.equal(got[0], evals[0, m])
+    if k == 16:
+        assert fractree.last_grid["blocks"] >= sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts,threads", [(1, 32), (2, 64), (8, 256),
+                                           (4, 128), (64, 32)])
+def test_fractree_kernel_grids_on_card(cuda, parts, threads):
+    """Other grids than the launcher's, n = 256, k = 3: runs of several
+    elements a thread, (8 x 256) chunks of 32 elements on 256 threads,
+    where 224 threads hold the identity, and (64 x 32) two parts a lane
+    of the fold; the pairs equal the tensor-code mirror's, and y the
+    plain version's."""
+    from tpukzg_torch.ntt.ntt import get_plan
+    n, k = 256, 3
+    plan = get_plan(n)
+    evals = _card_fr(cuda, (k, n), 11)
+    z = _card_fr(cuda, (k,), 12)
+    roots = torch.from_numpy(plan.roots).to(cuda)
+    z[1] = roots[n - 1]
+    n_inv = torch.from_numpy(plan.n_inv).to(cuda)
+    pair = fractree._launch(evals, z, roots, parts, threads)
+    assert fractree.last_grid["blocks"] == k * parts
+    assert fractree.last_grid["fold_blocks"] == k
+    assert pair[0].shape == (k, 1, 16)
+    want = fractree.fractree_partials_strided(evals, z, roots, parts,
+                                              threads)
+    assert all(torch.equal(g, w) for g, w in zip(pair, want))
+    assert torch.equal(_y(pair, n_inv), _y(fractree.fractree_partials_plain(
+        evals, z, roots), n_inv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [3, 6, 0])
+def test_fractree_parts_must_be_power_of_two_on_card(cuda, parts):
+    """The chunks must divide n, a power of two, so the launcher refuses
+    any other count of parts."""
+    n = 768 if parts == 3 else 256
+    evals, roots = _card_fr(cuda, (2, n), 1), _card_fr(cuda, (n,), 2)
+    with pytest.raises(ValueError, match="power of two"):
+        fractree._launch(evals, _card_fr(cuda, (2,), 3), roots, parts, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 16])
+@pytest.mark.parametrize("n", [2, 16, 64, 4096, 1 << 14, 1 << 18])
+def test_ntt_kernel_on_card(cuda, n, k):
+    """Both directions bit-exact against the plain stage loop, and
+    intt(ntt(x)) == x: one pass up to n = 64, two of 6 stages at 4096,
+    of 7 at 2^14, of 9 at 2^18 (the plain version one polynomial at a
+    time there)."""
+    from tpukzg_torch.ntt.ntt import get_plan
+    plan = get_plan(n)
+    if k * n <= 1 << 14:
+        x = torch.from_numpy(ntt_inputs(k, n, n)).to(cuda)
+    else:
+        x = _card_fr(cuda, (k, n), n + k)
     for inverse in (False, True):
-        assert torch.equal(ntt.ntt(x, plan, inverse),
-                           ntt.ntt_plain(x, plan, inverse))
+        got = ntt.ntt(x, plan, inverse)
+        assert len(ntt.last_grid) == len(ntt.split_stages(plan.log_n))
+        step = 1 if n >= 1 << 18 else k
+        for i in range(0, k, step):
+            assert torch.equal(got[i:i + step],
+                               ntt.ntt_plain(x[i:i + step], plan, inverse))
     assert torch.equal(ntt.ntt(ntt.ntt(x, plan), plan, True), x)
+
+
+@pytest.mark.cuda
+def test_ntt_kernel_fills_the_card_on_card(cuda):
+    """At the prover's (16, 4096) the first pass runs at least one block
+    an SM; at 2^18 the transform takes at most 3 passes."""
+    from tpukzg_torch.ntt.ntt import get_plan
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ntt.ntt(_card_fr(cuda, (16, 4096), 1), get_plan(4096))
+    assert [p["stages"] for p in ntt.last_grid] == [[0, 6], [6, 12]]
+    assert ntt.last_grid[0]["blocks"] >= sms
+    ntt.ntt(_card_fr(cuda, (1, 1 << 18), 2), get_plan(1 << 18), True)
+    assert len(ntt.last_grid) <= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [
+    [(0, 12, 0)], [(0, 4, 3), (4, 8, 2), (8, 12, 0)],
+    [(0, 6, 0), (6, 12, 3)], [(0, 1, 0)] + [(s, s + 1, 1)
+                                            for s in range(1, 12)]],
+    ids=["one", "three", "g1g8", "stagewise"])
+def test_ntt_kernel_other_passes_on_card(cuda, passes):
+    """Splits and groups the launcher does not choose, n = 4096, k = 3."""
+    from tpukzg_torch.ntt.ntt import get_plan
+    plan = get_plan(4096)
+    x = _card_fr(cuda, (3, 4096), 5)
+    for inverse in (False, True):
+        got = ntt._launch(x, plan, inverse, passes)
+        assert [p["blocks"] for p in ntt.last_grid] == [
+            3 * 4096 >> (s1 - s0 + lg) for s0, s1, lg in passes]
+        assert torch.equal(got, ntt.ntt_plain(x, plan, inverse))
 
 
 @pytest.mark.cuda

@@ -142,15 +142,15 @@ def test_scans_plain_vs_pallas_scan_tiled():
         assert bool(G1_LM_PLAIN.eq(got, ref_t).all())
 
 
-def test_fractree_plain_vs_pallas_fractree():
-    """n=512, k=3 with an in-domain row: y exact against the JAX fraction
-    tree (interpret mode) followed by its _fraction_merge."""
+@pytest.fixture(scope="module")
+def fractree_case():
+    """n=512, k=3 with an in-domain row (z = w^5): the inputs and the JAX
+    fraction tree's y (interpret mode, then its _fraction_merge)."""
     import jax.numpy as jnp
     from tpukzg.ntt.ntt import get_plan as jplan
     from tpukzg.pallas import fractree as jft
     from tpukzg.poly.poly import _fraction_merge as jmerge
     from tpukzg_torch.ntt.ntt import get_plan
-    from tpukzg_torch.poly.poly import barycentric_eval
     n, k = 512, 3
     rng = random.Random(5)
     jp, plan = jplan(n), get_plan(n)
@@ -162,6 +162,57 @@ def test_fractree_plain_vs_pallas_fractree():
                                  jp.roots, tile=256, interpret=True)
     ref = np.asarray(JFR.mul(jmerge(jnp.asarray(a), jnp.asarray(b)),
                              jnp.asarray(jp.n_inv)))
+    return plan, evals, z, ref
+
+
+def test_fractree_plain_vs_pallas_fractree(fractree_case):
+    """n=512, k=3 with an in-domain row: y exact against the JAX fraction
+    tree (interpret mode) followed by its _fraction_merge."""
+    from tpukzg_torch.poly.poly import barycentric_eval
+    plan, evals, z, ref = fractree_case
     got = barycentric_eval(plan, torch.from_numpy(evals), torch.from_numpy(z))
     assert np.array_equal(got.numpy(), ref.astype(np.int32))
     assert np.array_equal(got.numpy()[1], evals[1, 5])
+
+
+@pytest.mark.parametrize("parts,threads", [(1, 64), (2, 32), (8, 32),
+                                           (8, 256), (64, 32)])
+def test_fractree_strided_vs_pallas_fractree(fractree_case, parts, threads):
+    """B4's order in tensor code (thread t folds elements t, t + T, ... of
+    each of `parts` chunks, warps halve by shuffles, then the warps'
+    fractions; the fold kernel's lanes fold the parts the same way):
+    one pair a blob, whose y is exact against the JAX fraction tree, the
+    in-domain row included.  (8, 256): chunks of 64 elements on 256
+    threads, 192 of them holding the identity; (64, 32): two parts a
+    lane of the fold."""
+    from tpukzg_torch.field.mont import FR_PLAIN
+    from tpukzg_torch.kernels import fractree
+    from tpukzg_torch.poly.poly import _fraction_merge
+    plan, evals, z, ref = fractree_case
+    ev, zz = torch.from_numpy(evals), torch.from_numpy(z)
+    a, b = fractree.fractree_partials_strided(
+        ev, zz, torch.from_numpy(plan.roots), parts, threads)
+    assert a.shape == b.shape == (3, 1, 16)
+    got = FR_PLAIN.mul(_fraction_merge(a, b, FR_PLAIN),
+                       torch.from_numpy(plan.n_inv))
+    assert np.array_equal(got.numpy(), ref.astype(np.int32))
+
+
+def test_fractree_launcher_grid():
+    """The launcher's grid: k parts >= twice the SMs where chunks of a
+    warp allow it, always a power of two, and 32 elements a thread; any
+    other count of parts is refused before any launch (the chunks must
+    divide n, a power of two)."""
+    from tpukzg_torch.kernels import fractree
+    assert [fractree.parts_for(k, 4096, 132) for k in (1, 3, 16, 256)] == [
+        128, 128, 32, 2]
+    assert fractree.parts_for(3, 256, 132) == 8
+    assert fractree.parts_for(16, 16, 132) == 1
+    assert [fractree.threads_for(c) for c in (1, 32, 256, 2048, 4096,
+                                              8192, 1 << 14)] == [
+        32, 32, 32, 64, 128, 256, 256]
+    ev, z = torch.zeros((2, 256, 16), dtype=torch.int32), torch.zeros(
+        (2, 16), dtype=torch.int32)
+    for parts in (3, 6, 0):
+        with pytest.raises(ValueError, match="power of two"):
+            fractree._launch(ev, z, ev[0], parts)

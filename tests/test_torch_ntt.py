@@ -6,6 +6,7 @@ The Pallas NTT's CPU twin (``NttPallas(plan, interpret=True)``) runs
 under ``jax.disable_jit()``: op by op its forward NTT takes ~12 s at
 n = 16, while its jitted XLA:CPU compile takes minutes."""
 
+import functools
 import json
 import os
 import random
@@ -85,6 +86,61 @@ def test_ntt_kat_and_round_trip():
     assert torch.equal(plan.coset_intt(plan.coset_ntt(coeffs)), coeffs)
     # the wrapper takes the plain version for a CPU tensor
     assert torch.equal(kntt.ntt(coeffs, plan), kntt.ntt_plain(coeffs, plan))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pair(n):
+    """A (2, n) input and the JAX plan's ntt and intt of it."""
+    a = _mont(random.Random(n), (2, n))
+    u = a.astype(np.uint32)
+    return a, _jax_op(n, "ntt", u), _jax_op(n, "intt", u)
+
+
+@pytest.mark.parametrize("n,splits,groups", [
+    (16, (4,), (0,)), (16, (1, 1, 1, 1), (1, 1, 1, 1)),
+    (16, (2, 2), (2, 1)),
+    (64, (6,), (0,)), (64, (1,) * 6, (2, 0, 1, 0, 2, 1)),
+    (64, (4, 2), (1, 2)), (64, (3, 3), (0, 3)),
+    (256, (8,), (0,)), (256, (1,) * 8, (0,) * 8), (256, (4, 4), (2, 2)),
+    (256, (3, 3, 2), (2, 1, 0)), (256, (2, 6), (3, 2))],
+    ids=lambda v: "-".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_ntt_passes_vs_jax_plan(n, splits, groups):
+    """B5's passes in tensor code (stage ranges on strided groups, G
+    groups of consecutive low bits a block, the bit-reversal in the first
+    pass's load, 1/n in the last) against the JAX plan, both ways: one
+    pass, one stage a pass, and uneven splits."""
+    a, want_f, want_i = _jax_pair(n)
+    plan = get_plan(n)
+    x = torch.from_numpy(a)
+    for inverse, want in ((False, want_f), (True, want_i)):
+        got = kntt.ntt_passes(x, plan, splits, inverse, groups)
+        assert np.array_equal(got.numpy(), want.astype(np.int32))
+
+
+def test_ntt_launcher_passes():
+    """The launcher's passes: one up to n = 64, two of 6 stages at 4096
+    (1,024 blocks at the prover's k = 16 on 132 SMs), two of 9 at 2^18,
+    each within the kernel's limits (G m <= 4096; G within the groups
+    side by side), G m >= 64 where the grid still covers the SMs, the
+    split running through the tensor-code passes."""
+    assert kntt.passes_for(16, 4096, 132) == [(0, 6, 0), (6, 12, 0)]
+    assert kntt.passes_for(1, 1 << 18, 132) == [(0, 9, 0), (9, 18, 0)]
+    assert kntt.passes_for(3, 64, 132) == [(0, 6, 0)]
+    assert kntt.passes_for(256, 1 << 7, 132) == [(0, 4, 2), (4, 7, 3)]
+    assert kntt.passes_for(1, 1 << 7, 132) == [(0, 4, 0), (4, 7, 0)]
+    for log_n in range(1, 29):
+        passes = kntt.passes_for(16, 1 << log_n, 132)
+        assert passes[0][0] == 0 and passes[-1][1] == log_n
+        assert len(passes) == (1 if log_n <= 6 else max(2, -(-log_n // 12)))
+        for (s0, s1, lg), nxt in zip(passes, passes[1:] + [(log_n,)]):
+            assert nxt[0] == s1 and s1 - s0 + lg <= 12
+            assert lg <= (log_n - s1 if s0 == 0 else s0)
+    plan = get_plan(256)
+    x = torch.from_numpy(_mont(random.Random(1), (2, 256)))
+    passes = kntt.passes_for(2, 256, 4)
+    got = kntt.ntt_passes(x, plan, [s1 - s0 for s0, s1, _ in passes], True,
+                          [lg for *_, lg in passes])
+    assert torch.equal(got, kntt.ntt_plain(x, plan, True))
 
 
 def test_plan_tables_match_jax_plan():

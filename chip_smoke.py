@@ -39,7 +39,18 @@ Phases, each printed on its own line:
      pass at (16, 4096) and B4 at k = 16 must each run at least one block
      an SM; then B5 and B4 timed at other splits and grids than the
      launchers' (the evidence for their choice);
-  8. one JSON line of kernel numbers, then the result line.
+  8. this slice's paths, each with its launch counts and the card's name
+     and power limit on every line: the n = 4096 setup generated from
+     scratch (tau = 0xDEADBEEF) into a temporary directory, equal to the
+     committed SRS in affine form, with the lines of the committed G2
+     points bit for bit, and the fixtures' commitments and proofs on it
+     byte for byte (and verified); the committed SRS compressed and
+     loaded by from_compressed (equal, the fixtures verify) and three bad
+     inputs refused; verify_kzg_proof True for an out-of-domain and an
+     in-domain z, False for a wrong y and a wrong proof; the public MSM
+     over 2^20 points (8 chunks of 2^17) equal to [sum k_i d_i] G1, and
+     B3 on one row of a chunk against its plain version;
+  9. one JSON line of kernel numbers, then the result line.
 Any failure exits non-zero before the result line.  The script never
 falls back to the CPU and imports neither JAX nor the JAX package.
 """
@@ -308,7 +319,6 @@ def check_montmul(torch, field, lanes: int, gen, reps: int):
 def check_ec_add(torch, pool, lanes: int, gen, reps: int):
     from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
     from tpukzg_torch.field.limb_major import FP_LM_PLAIN
-    from tpukzg_torch.kernels import ec
     dev = torch.device("cuda")
     npool = pool[0].shape[1]
     i1 = torch.randint(0, npool, (lanes,), generator=gen, device=dev)
@@ -324,22 +334,60 @@ def check_ec_add(torch, pool, lanes: int, gen, reps: int):
         p[c][:, 4] = inf[c][:, 0]                      # inf + inf
         q[c][:, 4] = inf[c][:, 0]
     q[1][:, 1] = FP_LM_PLAIN.neg(p[1][:, 1:2])[:, 0]
-    p, q = tuple(p), tuple(q)
+    r = hold_ec_add(torch, tuple(p), tuple(q), reps)
+    check(bool(G1_LM_PLAIN.is_inf(tuple(c[:, 1:2] for c in r.pop("out"))
+                                  ).all()),
+          "ec_add: P + (-P) is not infinity")
+    r["check"] = (f"bit-exact in all {lanes} lanes incl. inf, P+P, "
+                  "P+(-P)")
+    return r
+
+
+def hold_ec_add(torch, p, q, reps: int):
+    """B2 against its plain version on (p, q) (batch axes broadcast), and
+    both timed -> the kernel entry's numbers and the kernel's output."""
+    from tpukzg_torch.field.limb_major import FP_LM_PLAIN
+    from tpukzg_torch.kernels import ec
+    coords = torch.broadcast_tensors(*p, *q)
+    p, q = tuple(c.contiguous() for c in coords[:3]), \
+        tuple(c.contiguous() for c in coords[3:])
     got = ec.ec_add(p, q)
     want = ec.ec_add_plain(p, q, FP_LM_PLAIN)
     torch.cuda.synchronize()
     err = max(int((g.long() - w.long()).abs().max().item())
               for g, w in zip(got, want))
-    check(err == 0, f"ec_add: kernel != plain (max limb err {err})")
-    check(bool(G1_LM_PLAIN.is_inf(tuple(c[:, 1:2] for c in got)).all()),
-          "ec_add: P + (-P) is not infinity")
+    lanes = p[0].numel() // 24
+    check(err == 0, f"ec_add on {lanes} lanes: kernel != plain (max limb "
+          f"err {err})")
     ms = cuda_ms(torch, lambda: ec.ec_add(p, q), reps)
     pms = cuda_ms(torch, lambda: ec.ec_add_plain(p, q, FP_LM_PLAIN), 1)
     bms, by = bound_ms(9 * lanes * 24 * 4, lanes * EC_ADD_OPS)
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, shape=[24, lanes],
-                check=f"bit-exact in all {lanes} lanes incl. inf, P+P, "
-                      "P+(-P)")
+                bound_by=by, shape=list(p[0].shape), out=got)
+
+
+def capture_ec_add(torch, fn, lanes: int, nth: int):
+    """fn() with the inputs of B2's nth call on `lanes` lanes kept
+    -> (fn's result, (p, q))."""
+    from tpukzg_torch.kernels import ec
+    orig, seen, cap = ec.ec_add, [0], {}
+
+    def rec(p, q):
+        if torch.broadcast_shapes(*(c.shape for c in p + q))[1:].numel() \
+                == lanes:
+            seen[0] += 1
+            if seen[0] == nth:
+                cap["pq"] = (tuple(c.clone() for c in p),
+                             tuple(c.clone() for c in q))
+        return orig(p, q)
+
+    ec.ec_add = rec
+    try:
+        out = fn()
+    finally:
+        ec.ec_add = orig
+    check("pq" in cap, f"B2 made fewer than {nth} calls on {lanes} lanes")
+    return out, cap["pq"]
 
 
 def scan_adds(torch, seg) -> int:
@@ -636,6 +684,295 @@ def prover_path(torch, ts, say_path):
     return paths, captured, ntt_inputs
 
 
+def expect_value_error(fn, what: str) -> str:
+    """fn() must raise ValueError (a refused input) -> its message."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    raise Fail(f"{what} was accepted")
+
+
+def same_affine(torch, normalize, a, b) -> bool:
+    """Two point tuples equal after normalising to affine form."""
+    return all(torch.equal(x, y) for x, y in zip(normalize(a), normalize(b)))
+
+
+def setup_path(torch, ts, triples, paths, say_card):
+    """Setup generation from scratch into a temporary directory (tau =
+    0xDEADBEEF, the committed SRS's n), held against the committed SRS:
+    the points in affine form, [tau]_2 in affine form, the lines of the
+    committed G2 points bit for bit; then the commit and proof batches of
+    the fixture blobs on it, byte for byte, and its batch verify.  The
+    next `generate_insecure` finds the file.  Returns B2 held against its
+    plain version on one step of the G1 ladder."""
+    import shutil
+    import tempfile
+    import tpukzg_torch
+    from tpukzg_torch.curve import g1 as g1m
+    from tpukzg_torch.curve.g2 import G2
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM
+    from tpukzg_torch.kzg.setup import Setup
+    from tpukzg_torch.pairing.lines import precompute_lines
+    ref = ts.setup
+    tmp = tempfile.mkdtemp(prefix="tpukzg_srs_")
+    path = Setup._cache_path(tmp, 0xDEADBEEF, ref.n)
+    try:
+        # what generate_insecure runs on a miss, with the seconds of each
+        # step; B2's inputs at step 200 of the 256-step ladder kept
+        ((gen, secs), wall, paths["setup_gen"]), step = capture_ec_add(
+            torch, lambda: run_path(torch, lambda: Setup._generate(
+                0xDEADBEEF, ref.n, ref.device, path)), 2 * ref.n, 200)
+        files = os.listdir(tmp)
+        t0 = time.perf_counter()
+        again = Setup.generate_insecure(0xDEADBEEF, ref.n, cache_dir=tmp,
+                                        device=ref.device)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    check(files == [os.path.basename(path)],
+          f"the generated setup wrote {files}")
+    check(all(torch.equal(a, b) for a, b in zip(
+        again.lagrange_g1 + again.monomial_g1 + again.g2_tau
+        + again.lines_tau, gen.lagrange_g1 + gen.monomial_g1 + gen.g2_tau
+        + gen.lines_tau)), "generate_insecure read back another setup")
+    say_card(f"[setup_gen n={ref.n}] generated in {wall:.3f} s; steps (s) "
+             f"{json.dumps({k: round(v, 4) for k, v in secs.items()})}"
+             f"; kernel launches {json.dumps(paths['setup_gen'])}; "
+             f"generate_insecure then read the file back in {load_s:.3f} s")
+    b2 = hold_ec_add(torch, *step, REPS)
+    b2.pop("out")
+    say_card(f"[setup_gen n={ref.n}] B2 on step 200 of the G1 ladder "
+             f"{b2['shape']}: bit-exact vs plain, {b2['ms']:.4f} ms (plain "
+             f"{b2['plain_ms']:.2f} ms, bound {b2['bound_ms']:.4f} ms)")
+    g1 = tuple(c.movedim(-1, 0) for c in gen.lagrange_g1)
+    ops_g1 = count_dispatch(torch, lambda: G1_LM.double(g1))
+    ops_g2 = count_dispatch(torch, lambda: G2.add(G2.double(gen.g2_tau),
+                                                  gen.g2_gen))
+    say_card(f"[setup_gen n={ref.n}] tensor ops dispatched (count_dispatch,"
+             f" the port's launches included): a G1 double {ops_g1}, a G2 "
+             f"double + add {ops_g2}")
+    for name in ("lagrange_g1", "monomial_g1"):
+        check(same_affine(torch, g1m.normalize, getattr(gen, name),
+                          getattr(ref, name)),
+              f"generated {name} differs from the committed SRS")
+    for name in ("g2_gen", "g2_tau"):
+        check(same_affine(torch, G2.normalize, getattr(gen, name),
+                          getattr(ref, name)),
+              f"generated {name} differs from the committed SRS")
+    both = tuple(torch.stack([a, b]) for a, b in zip(ref.g2_gen, ref.g2_tau))
+    d, a = precompute_lines(both)
+    check(all(torch.equal(x, y) for x, y in zip(
+        (d[0], a[0], d[1], a[1]), ref.lines_gen + ref.lines_tau)),
+          "lines of the committed G2 points differ from the file's")
+    check(all(torch.equal(x, y) for x, y in zip(
+        gen.lines_gen + gen.lines_tau, ref.lines_gen + ref.lines_tau)),
+          "lines of the generated setup differ from the file's")
+    say_card(f"[setup_gen n={ref.n}] the Lagrange and monomial points, "
+             "[1]_2 and [tau]_2 equal the committed SRS in affine form; "
+             "precompute_lines of the committed G2 points equals its lines "
+             "bit for bit")
+    tsg = tpukzg_torch.TrustedSetup(gen)
+    blobs, cs, pfs = triples
+    t0 = time.perf_counter()
+    tsg.kzg.table("lag")
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    got_cs, wall_c, paths["commit_batch_gen"] = run_path(
+        torch, lambda: tpukzg_torch.blob_to_kzg_commitment_batch(blobs, tsg))
+    check(got_cs == cs, "commitments on the generated setup differ")
+    got_pfs, wall_p, paths["proof_batch_gen"] = run_path(
+        torch, lambda: tpukzg_torch.compute_blob_kzg_proof_batch(blobs, cs,
+                                                                 tsg))
+    check(got_pfs == pfs, "proofs on the generated setup differ")
+    t0 = time.perf_counter()
+    ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, pfs, tsg)
+    wall_v = time.perf_counter() - t0
+    check(ok is True, "the fixtures do not verify on the generated setup")
+    say_card(f"[setup_gen n={ref.n}] on it: Lagrange table {table_s:.3f} s,"
+             f" commit batch k={len(blobs)} {wall_c:.3f} s and proof batch "
+             f"{wall_p:.3f} s byte-equal to the fixture's, "
+             f"verify_blob_kzg_proof_batch {ok} in {wall_v:.3f} s")
+    return b2
+
+
+def compressed_path(torch, ts, triples, paths, say_card):
+    """from_compressed of the committed SRS's points, compressed by the
+    port: equal to the file in affine form, the fixtures verify on it; a
+    [tau]_2 outside G2's subgroup and a G1 point outside G1 or off the
+    curve are refused."""
+    import tpukzg_torch
+    from tpukzg_torch.curve import g1 as g1m, g2 as g2m
+    from tpukzg_torch.curve.g2 import G2
+    from tpukzg_torch.field.mont import P_MOD
+    ref = ts.setup
+    t0 = time.perf_counter()
+    mono = g1m.compress_points(ref.monomial_g1)
+    lag = g1m.compress_points(ref.lagrange_g1)
+    tau_b = g2m.compress_point(ref.g2_tau)
+    comp_s = time.perf_counter() - t0
+    loaded, wall, paths["from_compressed"] = run_path(
+        torch, lambda: tpukzg_torch.load_trusted_setup(mono, lag, tau_b,
+                                                       device=ref.device))
+    s = loaded.setup
+    for name in ("lagrange_g1", "monomial_g1"):
+        check(same_affine(torch, g1m.normalize, getattr(s, name),
+                          getattr(ref, name)),
+              f"loaded {name} differs from the committed SRS")
+    check(same_affine(torch, G2.normalize, s.g2_tau, ref.g2_tau),
+          "loaded [tau]_2 differs from the committed SRS")
+    check(all(torch.equal(x, y) for x, y in zip(
+        s.lines_gen + s.lines_tau, ref.lines_gen + ref.lines_tau)),
+          "lines of the loaded setup differ from the file's")
+    blobs, cs, pfs = triples
+    ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, pfs, loaded)
+    check(ok is True, "the fixtures do not verify on the loaded setup")
+    say_card(f"[from_compressed n={ref.n}] {2 * ref.n} G1 + [tau]_2 "
+             f"compressed in {comp_s:.3f} s, loaded and validated in "
+             f"{wall:.3f} s (equal to the file in affine form; the "
+             f"{len(blobs)} fixtures verify {ok}); kernel launches "
+             f"{json.dumps(paths['from_compressed'])}")
+    v = 5                        # x = (v, 1), as the JAX package's test
+    while True:
+        v += 1
+        y = g2m._fp2_sqrt_ints((v ** 3 - 3 * v + 4) % P_MOD,
+                               (3 * v * v - 1 + 4) % P_MOD)
+        if y is not None and not g2m.in_subgroup_host(v, 1, *y):
+            bad_tau = g2m.compress(v, 1, y[0], y[1], False)
+            break
+    x = 3
+    while True:                  # on the curve, outside G1
+        x += 1
+        rhs = (x ** 3 + 4) % P_MOD
+        yy = pow(rhs, (P_MOD + 1) // 4, P_MOD)
+        if yy * yy % P_MOD == rhs:
+            cand = g1m.compress(x, yy, False)
+            if not bool(g1m.decompress_batch([cand], ref.device)[1].item()):
+                break
+    x_off = x
+    while pow((x_off ** 3 + 4) % P_MOD, (P_MOD - 1) // 2, P_MOD) == 1:
+        x_off += 1               # off the curve: x^3 + 4 not a square
+    for what, args in (
+            ("[tau]_2 outside the G2 subgroup", (mono, lag, bad_tau)),
+            ("a Lagrange point outside G1",
+             (mono, lag[:7] + [cand] + lag[8:], tau_b)),
+            ("a monomial point off the curve",
+             (mono[:3] + [g1m.compress(x_off, 0, False)] + mono[4:], lag,
+              tau_b))):
+        t0 = time.perf_counter()
+        msg = expect_value_error(
+            lambda: tpukzg_torch.load_trusted_setup(*args, device=ref.device),
+            what)
+        say_card(f"[from_compressed] {what}: ValueError({msg!r}) in "
+                 f"{time.perf_counter() - t0:.3f} s")
+
+
+def single_verify_path(torch, ts, triples, paths, say_card):
+    """verify_kzg_proof at n on openings from compute_kzg_proof of a
+    fixture blob: an out-of-domain and an in-domain z verify True, a wrong
+    y and a wrong proof False."""
+    import tpukzg_torch
+    from tpukzg_torch.field.mont import R_MOD
+    blobs, cs, _ = triples
+    roots = ts.setup.plan.roots_int
+    op = {}
+    for name, z in (("z outside the domain", 0x5EEDC0FFEE % R_MOD),
+                    ("z = w^5 in the domain", roots[5])):
+        zb = z.to_bytes(32, "big")
+        pf, y = tpukzg_torch.compute_kzg_proof(blobs[0], zb, ts)
+        op[name] = (zb, y, pf)
+    zb, y, pf = op["z outside the domain"]
+    y_bad = ((int.from_bytes(y, "big") + 1) % R_MOD).to_bytes(32, "big")
+    cases = [(name, args, True) for name, args in op.items()] + [
+        ("wrong y", (zb, y_bad, pf), False),
+        ("wrong proof", (zb, y, op["z = w^5 in the domain"][2]), False)]
+    for i, (name, (z_b, y_b, p_b), want) in enumerate(cases):
+        def one():
+            return tpukzg_torch.verify_kzg_proof(cs[0], z_b, y_b, p_b, ts)
+
+        (got, wall, launches), pq = capture_ec_add(
+            torch, lambda: run_path(torch, one), 2, 200)
+        if i == 0:
+            paths["verify_kzg_proof"] = launches
+            step = pq
+        say_card(f"[verify_kzg_proof n={ts.n}, {name}] {got} in {wall:.3f} s;"
+                 f" kernel launches {json.dumps(launches)}")
+        check(got is want, f"verify_kzg_proof ({name}) gave {got}")
+    b2 = hold_ec_add(torch, *step, REPS)
+    b2.pop("out")
+    say_card(f"[verify_kzg_proof n={ts.n}] B2 on its 200th call on 2 lanes "
+             f"(the ladder's) {b2['shape']}: bit-exact vs plain, "
+             f"{b2['ms']:.4f} ms (plain "
+             f"{b2['plain_ms']:.2f} ms, bound {b2['bound_ms']:.4f} ms)")
+    return b2
+
+
+def msm_path(torch, setup, paths, say_card, log_n: int = 20):
+    """The public MSM over 2^log_n points: the SRS's 2n points (known
+    logs tau^i and L_i(tau), tau = 0xDEADBEEF) tiled, seeded scalars below
+    2^254.  Check: the result equals [sum k_i d_i mod r] G1 (one ladder).
+    Returns the first B3 launch on a row of POINT_CHUNK lanes (its input,
+    one row) and the launches' grids."""
+    from tpukzg_torch.curve import g1 as g1m
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM
+    from tpukzg_torch.field.mont import FR, R_MOD
+    from tpukzg_torch.kernels import bucket
+    from tpukzg_torch.kzg.setup import _lagrange_scalars
+    from tpukzg_torch.msm.pippenger_lm import POINT_CHUNK, default_window, msm
+    dev, n = setup.device, setup.n
+    tau = 0xDEADBEEF
+    logs = ([pow(tau, i, R_MOD) for i in range(n)]
+            + _lagrange_scalars(tau, n, setup.plan.roots_int))
+    N = 1 << log_n
+    reps = N // (2 * n)
+    points = tuple(torch.cat([m, l]).repeat(reps, 1)
+                   for m, l in zip(setup.monomial_g1, setup.lagrange_g1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0x5EED20)
+    k = torch.randint(0, 1 << 16, (N, 16), generator=gen, device=dev,
+                      dtype=torch.int32)
+    k[:, 15] &= 0x3FFF
+    col = k.reshape(reps, 2 * n, 16).to(torch.int64).sum(0).cpu().tolist()
+    s = sum(d * sum(v << (16 * j) for j, v in enumerate(row))
+            for d, row in zip(logs, col)) % R_MOD
+    grids, cap = [], {}
+    orig = bucket._launch
+
+    def rec(pts, seg):
+        out = orig(pts, seg)
+        grids.append((tuple(seg.shape), dict(bucket.last_grid)))
+        if seg.shape[1] == POINT_CHUNK:
+            cap.setdefault("row", (tuple(c[:, :1].contiguous() for c in pts),
+                                   seg[:1].contiguous()))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bucket._launch = rec
+    try:
+        out, wall, paths["msm_2^20"] = run_path(torch, lambda: msm(points, k))
+    finally:
+        bucket._launch = orig
+    peak = torch.cuda.max_memory_allocated()
+    g = tuple(torch.as_tensor(c, device=dev)[:, None] for c in g1m.GEN_NP)
+    want = G1_LM.scalar_mul(g, torch.as_tensor(FR.from_int([s]), device=dev))
+    ok = bool(G1_LM.eq(tuple(c[:, None] for c in out), want).all().item())
+    check(ok, "the 2^20-point MSM differs from [sum k_i d_i] G1")
+    shapes = collections.Counter(sh for sh, _ in grids)
+    by_shape = {f"{sh[0]}x{sh[1]}": dict(launches=c, grid=next(
+        gr for s_, gr in grids if s_ == sh)) for sh, c in shapes.items()}
+    say_card(f"[msm 2^{log_n}] equals [sum k_i d_i] G1: {ok}; {wall:.3f} s "
+             f"in {N // POINT_CHUNK} chunks of {POINT_CHUNK} points, window "
+             f"c = {default_window(N)}; peak device memory "
+             f"{peak / 2**30:.2f} GiB (of it {base / 2**30:.2f} GiB held "
+             f"before); kernel launches {json.dumps(paths['msm_2^20'])}; B3 "
+             f"launches by (rows, lanes) and a launch's grid "
+             f"{json.dumps(by_shape)}")
+    check("row" in cap, "no B3 launch on a chunk's row was captured")
+    return cap["row"], by_shape
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -889,7 +1226,37 @@ def main() -> int:
     results["fractree"]["alternatives"] = {k: v for k, v in alt.items()
                                            if k.startswith("fractree")}
 
-    # 8. report
+    # 8. this slice's paths: setup generation, compressed load, single
+    # verify, the 2^20-point MSM (and B3 on one of its chunk's rows)
+    def say_card(msg):
+        say(f"{msg} [{card}]")
+
+    triples = load_triples(4096, 16)
+    b2_gen = setup_path(torch, ts, triples, paths, say_card)
+    compressed_path(torch, ts, triples, paths, say_card)
+    b2_one = single_verify_path(torch, ts, triples, paths, say_card)
+    results["ec_add"]["other_shapes"] = {"setup_gen_g1_ladder": b2_gen,
+                                         "verify_kzg_proof_ladder": b2_one}
+    (pts, seg), by_shape = msm_path(torch, ts.setup, paths, say_card)
+    r = check_bucket(torch, pts, seg, REPS)
+    r["check"] = ("affine-equal in every lane of one row of a 2^20-point "
+                  "MSM chunk, the same limbs on two launches")
+    r["msm_launches_by_shape"] = by_shape
+    results["bucket_scan_msm"] = r
+    say_card(f"[B3 bucket scan 2^20 MSM row {r['shape']}] ok, affine-equal "
+             f"in every lane, the same limbs twice: {r['ms']:.3f} ms (plain "
+             f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
+             f"{r['bound_by']}, {r['adds']} adds; device kernels launched "
+             f"and their blocks {json.dumps(r['grid'])})")
+    for path, need in (("setup_gen", ("ec_add", "montmul_fp")),
+                       ("from_compressed", ("ec_add", "montmul_fp")),
+                       ("verify_kzg_proof", ("ec_add", "montmul_fp")),
+                       ("msm_2^20", ("bucket_scan", "ec_add", "montmul_fp"))):
+        for kern in need:
+            check(paths[path].get(kern, 0) > 0,
+                  f"{kern} was not launched on the {path} path")
+
+    # 9. report
     meta = {
         "montmul_fp": ("src/tpukzg_torch/csrc/montmul.cu",
                        "src/tpukzg/pallas/montmul.py:133"),
@@ -905,12 +1272,16 @@ def main() -> int:
                               "src/tpukzg/pallas/bucket.py:117"),
         "ntt": ("src/tpukzg_torch/csrc/ntt.cu",
                 "src/tpukzg/pallas/ntt.py:99"),
+        "bucket_scan_msm": ("src/tpukzg_torch/csrc/bucket.cu",
+                            "src/tpukzg/pallas/bucket.py:117"),
     }
     # the path whose launches each entry reports; the counter name
     path_of = {"bucket_scan_fixed": ("commit_batch", "bucket_scan"),
-               "ntt": ("coeff", "ntt")}
+               "ntt": ("coeff", "ntt"),
+               "bucket_scan_msm": ("msm_2^20", "bucket_scan")}
     regs = {"ec_add": ptxas["ec.cu"], "bucket_scan": ptxas["bucket.cu"],
             "bucket_scan_fixed": ptxas["bucket.cu"],
+            "bucket_scan_msm": ptxas["bucket.cu"],
             "fractree": ptxas["fractree.cu"], "ntt": ptxas["ntt.cu"]}
     kernels = []
     for name, (src, repl) in meta.items():
@@ -929,7 +1300,8 @@ def main() -> int:
                             **{k: r[k] for k in ("other_shapes", "grid",
                                                  "device_kernels",
                                                  "call_ms",
-                                                 "alternatives")
+                                                 "alternatives",
+                                                 "msm_launches_by_shape")
                                if k in r},
                             **({"ptxas": regs[name]} if name in regs
                                else {})))

@@ -16,6 +16,8 @@ from tpukzg_torch.api import (  # noqa: F401
     compute_kzg_proof,
     generate_insecure_setup,
     load_setup_file,
+    load_trusted_setup,
     verify_blob_kzg_proof,
     verify_blob_kzg_proof_batch,
+    verify_kzg_proof,
 )

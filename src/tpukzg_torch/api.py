@@ -1,9 +1,11 @@
 """Public API, c-kzg-4844-shaped (counterpart of ``tpukzg/api.py``).
 
     ts = tpukzg_torch.generate_insecure_setup(tau, n)         # on the card
+    ts = tpukzg_torch.load_trusted_setup(mono_b, lag_b, g2_tau_b)
     cs = tpukzg_torch.blob_to_kzg_commitment_batch(blobs, ts)
     pfs = tpukzg_torch.compute_blob_kzg_proof_batch(blobs, cs, ts)
     ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, pfs, ts)
+    ok = tpukzg_torch.verify_kzg_proof(c, z_bytes, y_bytes, proof, ts)
 
 Coefficient-form and field-level calls live on ``ts.kzg`` (``interpolate``,
 ``to_evals``, ``commit``, ``commit_coeff``, ``open``, ``open_coeff``,
@@ -33,8 +35,17 @@ class TrustedSetup:
 
 
 def generate_insecure_setup(tau: int, n: int, device=None) -> TrustedSetup:
-    """The cached dev SRS of (tau, n) — INSECURE by construction."""
+    """The dev SRS of (tau, n), cached or generated — INSECURE by
+    construction."""
     return TrustedSetup(_Setup.generate_insecure(tau, n, device=device))
+
+
+def load_trusted_setup(g1_monomial_bytes, g1_lagrange_bytes, g2_tau_bytes,
+                       device=None) -> TrustedSetup:
+    """A setup from compressed points (48-byte G1, 96-byte [tau]_2), each
+    checked for its subgroup (c-kzg-4844 shape)."""
+    return TrustedSetup(_Setup.from_compressed(
+        g1_monomial_bytes, g1_lagrange_bytes, g2_tau_bytes, device=device))
 
 
 def load_setup_file(path: str, device=None) -> TrustedSetup:
@@ -65,6 +76,13 @@ def compute_blob_kzg_proof_batch(blobs, commitment_bytes_list,
                                  ts: TrustedSetup) -> list[bytes]:
     """Prove k blobs in one batched open."""
     return ts.blob.compute_blob_kzg_proof_batch(blobs, commitment_bytes_list)
+
+
+def verify_kzg_proof(commitment_bytes: bytes, z_bytes: bytes, y_bytes: bytes,
+                     proof_bytes: bytes, ts: TrustedSetup) -> bool:
+    """Does the proof open the commitment to y at z?"""
+    return ts.blob.verify_kzg_proof(commitment_bytes, z_bytes, y_bytes,
+                                    proof_bytes)
 
 
 def verify_blob_kzg_proof(blob: bytes, commitment_bytes: bytes,

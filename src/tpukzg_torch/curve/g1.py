@@ -154,7 +154,7 @@ def parse_compressed(byte_list):
     return x_l, sign, inf
 
 
-def decompress_batch(byte_list, device="cpu"):
+def decompress_batch(byte_list, device):
     """48-byte encodings -> ((X, Y, Z) (n, 24) on `device`, ok (n,) bool).
     ok = on the curve and in G1 (or infinity)."""
     x_l, sign, inf = parse_compressed(byte_list)

@@ -1,9 +1,10 @@
 """Limb-major complete projective G1 group law (y^2 = x^3 + 4).
 
 Counterpart of ``tpukzg/curve/weierstrass_lm.py`` (and of
-``curve/weierstrass.py:_normalize``).  Coordinates are (L, *batch) int32
-Montgomery limbs.  ``add`` goes through the ec_add kernel on the card
-(``kernels/ec.py``); over a plain field it is the tensor formula.
+``curve/weierstrass.py:_normalize, _scalar_mul``).  Coordinates are
+(L, *batch) int32 Montgomery limbs.  ``add`` goes through the ec_add
+kernel on the card (``kernels/ec.py``); over a plain field it is the
+tensor formula.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ class CurveLM:
         self.F = field
         self.b3_small = b3_small
 
-    def inf(self, batch_shape=(), device="cpu"):
+    def inf(self, batch_shape, device):
         F = self.F
         one = torch.as_tensor(F.one_np, device=device).reshape(
             (F.L,) + (1,) * len(batch_shape)).expand((F.L,) + tuple(batch_shape))
@@ -87,6 +88,28 @@ class CurveLM:
                            tuple(c[:, half:] for c in pts))
             n = half
         return tuple(c[:, 0] for c in pts)
+
+    def scalar_mul(self, p, k_limbs):
+        """[k] P: k as (..., 16) canonical Fr limbs, P as (L, ...) coords;
+        the batch axes of P and k broadcast together.  The fixed 256-step
+        MSB-first double-and-add with a branchless select (an add every
+        step), as ``curve/weierstrass.py:_scalar_mul``."""
+        dev = p[0].device
+        L, pb, kb = self.F.L, tuple(p[0].shape[1:]), tuple(k_limbs.shape[:-1])
+        batch = torch.broadcast_shapes(kb, pb)
+        p = tuple(c.reshape((L,) + (1,) * (len(batch) - len(pb)) + pb)
+                  .expand((L,) + batch).contiguous() for c in p)
+        shifts = torch.arange(16, device=dev, dtype=torch.int32)
+        bits = (k_limbs.to(device=dev, dtype=torch.int32)[..., None]
+                >> shifts) & 1
+        bits = bits.reshape(kb + (256,)).movedim(-1, 0).reshape(
+            (256,) + (1,) * (len(batch) - len(kb)) + kb)
+        bits = (bits == 1).expand((256,) + batch)         # LSB-first rows
+        acc = self.inf(batch, dev)
+        for i in range(255, -1, -1):
+            acc = self.double(acc)
+            acc = self.select(bits[i], self.add(acc, p), acc)
+        return acc
 
     def normalize(self, p):
         """-> (x, y, is_inf) affine Montgomery; infinity -> (0, 0, True)."""

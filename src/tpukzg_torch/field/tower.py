@@ -25,6 +25,9 @@ def _stack(parts, dim):
 
 
 class Fp2Ops:
+    # trailing axes of one element: (component, limb)
+    suffix_ndim = 2
+
     def __init__(self, fp=FP):
         self.fp = fp
         L = fp.L
@@ -37,11 +40,30 @@ class Fp2Ops:
     def build(self, c0, c1):
         return _stack([c0, c1], -2)
 
+    def select(self, mask, a, b):
+        return torch.where(mask[..., None, None], a, b)
+
+    def eq(self, a, b):
+        return (a == b).all(-1).all(-1)
+
+    def is_zero(self, a):
+        return (a == 0).all(-1).all(-1)
+
+    # linear ops: the Fp op broadcasts over the component axis
     def add(self, a, b):
         return self.fp.add(a, b)
 
     def sub(self, a, b):
         return self.fp.sub(a, b)
+
+    def neg(self, a):
+        return self.fp.neg(a)
+
+    def double(self, a):
+        return self.fp.add(a, a)
+
+    def mul_small(self, a, k: int):
+        return self.fp.mul_small(a, k)
 
     def conj(self, a):
         return self.build(self.c(a, 0), self.fp.neg(self.c(a, 1)))

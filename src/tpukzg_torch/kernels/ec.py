@@ -56,18 +56,19 @@ _fn = None
 
 
 def ec_add(p, q):
-    """p + q on limb-major (X, Y, Z) coords of (24, *batch).
-    CPU tensors -> plain version; CUDA tensors -> the elementwise kernel."""
+    """p + q on limb-major (X, Y, Z) coords of (24, *batch); the batch
+    axes broadcast.  CPU tensors -> plain version; CUDA tensors -> the
+    elementwise kernel."""
     coords = list(p) + list(q)
     devs = {c.device for c in coords}
     if len(devs) != 1:
         raise ValueError(f"ec_add: tensors on several devices {devs}")
     dev = devs.pop()
+    coords = torch.broadcast_tensors(*coords)
     if dev.type == "cpu":
-        return ec_add_plain(tuple(p), tuple(q), FP_LM_PLAIN)
+        return ec_add_plain(tuple(coords[:3]), tuple(coords[3:]), FP_LM_PLAIN)
     if dev.type != "cuda":
         raise ValueError(f"ec_add: unsupported device {dev}")
-    coords = torch.broadcast_tensors(*coords)
     shape = coords[0].shape
     if shape[0] != 24:
         raise ValueError(f"ec_add: limb axis of {tuple(shape)} is not 24")

@@ -145,6 +145,21 @@ class BlobKzg:
         pi, _ = self.kzg.open(evals, self._z_mont(zs))
         return g1m.compress_points(pi)
 
+    def verify_kzg_proof(self, commitment_bytes: bytes, z_bytes: bytes,
+                         y_bytes: bytes, proof_bytes: bytes) -> bool:
+        """The single verify (c-kzg-4844's verb).  Raises ValueError on a
+        malformed point, a point off the curve or outside G1, and z or y
+        not a 32-byte element below r."""
+        pts, ok = g1m.decompress_batch([commitment_bytes, proof_bytes],
+                                       self.device)
+        if not bool(ok.all().item()):
+            raise ValueError("G1 point not in subgroup")
+        z, y = (torch.as_tensor(blob_to_limbs(b, 1)[0], device=self.device)
+                for b in (z_bytes, y_bytes))
+        ok = self.kzg.verify(tuple(c[0] for c in pts), z, y,
+                             tuple(c[1] for c in pts))
+        return bool(ok.item())
+
     def verify_blob_kzg_proof(self, blob: bytes, commitment_bytes: bytes,
                               proof_bytes: bytes) -> bool:
         return self.verify_blob_kzg_proof_batch(

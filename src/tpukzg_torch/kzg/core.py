@@ -1,11 +1,15 @@
-"""KZG commit, open and batch verification (counterpart of
-``tpukzg/kzg/core.py:48-148, 182-227``).
+"""KZG commit, open, verify and batch verification (counterpart of
+``tpukzg/kzg/core.py:34-44, 48-148, 170-227``).
 
 Commit and open are MSMs against a fixed-base table of the Lagrange
 (evaluation form) or monomial (coefficient form) SRS, built once per
 basis on the setup's device.  Open is the barycentric eval, the
 evaluation-form quotient and one such MSM; the coefficient-form calls go
 through the NTT first.
+
+Verify checks e(C - [y]_1 + [z] pi, [1]_2) == e(pi, [tau]_2): the left
+point from one G1 ladder over the lanes ([y] G1, [z] pi) and two adds,
+then the two pairings on the precomputed lines.
 
 Batch verify folds the k openings by powers of rho into ONE grouped MSM
 over 3k+1 points, groups (k, 2k+1), then two pairings on the
@@ -21,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from tpukzg_torch.curve import g1 as g1m
+from tpukzg_torch.curve.weierstrass_lm import G1_LM
 from tpukzg_torch.field.mont import FP, FR
 from tpukzg_torch.kzg.setup import Setup
 from tpukzg_torch.msm.pippenger_lm import (build_fixed_table, default_window,
@@ -96,6 +101,36 @@ class Kzg:
         return self.plan.ntt(coeffs_mont)
 
     # -- verify ------------------------------------------------------------
+
+    def verify_lhs(self, c_point, z_can, y_can, proof_point):
+        """C - [y] G1 + [z] pi for (..., 24) points and (..., 16) canonical
+        z, y; batch axes broadcast.  [y] G1 and [z] pi are one ladder
+        over a leading axis of two."""
+        batch = torch.broadcast_shapes(c_point[0].shape[:-1],
+                                       proof_point[0].shape[:-1],
+                                       z_can.shape[:-1], y_can.shape[:-1])
+
+        def lm(c):          # limb-major, with every batch axis present
+            return c.movedim(-1, 0).reshape(
+                (24,) + (1,) * (len(batch) + 1 - c.dim()) + c.shape[:-1])
+
+        gen = [torch.as_tensor(g, device=self.device).reshape(
+            (24,) + (1,) * len(batch)) for g in g1m.GEN_NP]
+        bases = tuple(torch.stack(torch.broadcast_tensors(g, lm(c)), 1)
+                      for g, c in zip(gen, proof_point))     # (24, 2, ...)
+        ks = torch.stack([k.expand(batch + (16,)) for k in (y_can, z_can)])
+        prods = G1_LM.scalar_mul(bases, ks)
+        y_g = tuple(c[:, 0] for c in prods)
+        z_pi = tuple(c[:, 1] for c in prods)
+        lhs = G1_LM.add(G1_LM.add(tuple(lm(c) for c in c_point),
+                                  G1_LM.neg(y_g)), z_pi)
+        return tuple(c.movedim(0, -1) for c in lhs)
+
+    def verify(self, c_point, z_can, y_can, proof_point):
+        """Single verify -> (...) bool tensor; z_can, y_can canonical Fr
+        limbs (..., 16); batch axes broadcast across all four."""
+        lhs = self.verify_lhs(c_point, z_can, y_can, proof_point)
+        return self.verify_batch_pair(proof_point, lhs)
 
     def verify_batch_msm(self, c_points, z_can, y_can, proof_points, rho_can):
         """-> (pi_agg, lhs): points as (X, Y, Z) tuples of (24,) tensors."""

@@ -6,7 +6,9 @@ one gather of each bucket's last lane, the suffix scan over buckets
 (B3 again) and a tree sum over buckets.  The grouped MSM (batch verify)
 then folds its windows by Horner; the fixed-base MSM (commit, open) has
 them folded into a table of [2^(c w)] P_i, so one sorted row of W n keys
-per MSM needs no doublings at all.
+per MSM needs no doublings at all.  The public `msm` cuts a long point
+list into chunks of `POINT_CHUNK` points, runs them as the groups of one
+grouped MSM and adds the partial results.
 """
 
 from __future__ import annotations
@@ -144,3 +146,35 @@ def msm_fixed(table, scalars, c: int, curve: CurveLM = G1_LM):
         res.append(_window_sums(curve, buckets))              # (24, g)
     return tuple(torch.cat([r[i] for r in res], 1).movedim(0, -1)
                  for i in range(3))
+
+
+# Points a chunk of the public MSM (``pippenger_lm.py:184-209``): each
+# chunk's rows of this many lanes go through B3; partial results add.
+POINT_CHUNK = 1 << 17
+
+
+def msm(points, scalars, c: int | None = None,
+        point_chunk: int = POINT_CHUNK, curve: CurveLM = G1_LM):
+    """sum_i [k_i] P_i: points (X, Y, Z) of (n, 24); scalars (n, 16)
+    canonical -> (X, Y, Z) of (24,).  c defaults to the window of n.  The
+    list is padded with zero scalars (digit 0: no bucket picks a pad) to
+    whole chunks of `point_chunk` points; the chunks are the groups of
+    one grouped MSM (rows of at most `point_chunk` lanes, one Horner fold
+    for all), and their partial results add, one EC add a chunk."""
+    n = scalars.shape[0]
+    if any(p.shape[0] != n for p in points):
+        raise ValueError(f"msm: {n} scalars for {points[0].shape[0]} points")
+    if n == 0:
+        return curve.inf((), scalars.device)
+    if c is None:
+        c = default_window(n)
+    m = min(n, point_chunk)
+    npad = -(-n // m) * m
+    points = tuple(torch.nn.functional.pad(p, (0, 0, 0, npad - n))
+                   for p in points)
+    scalars = torch.nn.functional.pad(scalars, (0, 0, 0, npad - n))
+    parts = msm_grouped(points, scalars, (m,) * (npad // m), c, curve)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = curve.add(acc, part)
+    return acc

@@ -14,13 +14,18 @@ from tpukzg_torch.pairing.miller import miller_loop_lines
 
 
 def miller_product(pairs_with_lines):
-    """prod_i f_i(P_i) before the final exponentiation."""
-    pts = tuple(torch.stack([p[i] for p, _ in pairs_with_lines])
-                for i in range(3))                       # (k, 24) coords
-    xp, yp, is_inf = g1m.normalize(pts)
-    dl = torch.stack([l[0] for _, l in pairs_with_lines])
-    al = torch.stack([l[1] for _, l in pairs_with_lines])
-    fs = miller_loop_lines(xp, yp, dl, al)               # (k, 2, 3, 2, L)
+    """prod_i f_i(P_i) before the final exponentiation; the points'
+    batch axes (...) broadcast against each pair's one set of lines."""
+    pts = tuple(torch.stack(torch.broadcast_tensors(
+        *[p[i] for p, _ in pairs_with_lines])) for i in range(3))
+    xp, yp, is_inf = g1m.normalize(pts)                  # (k, ..., 24)
+    ones = (1,) * (xp.dim() - 2)
+
+    def lines(j):                                        # (k, 1.., 63, ...)
+        t = torch.stack([ln[j] for _, ln in pairs_with_lines])
+        return t.reshape(t.shape[:1] + ones + t.shape[1:])
+
+    fs = miller_loop_lines(xp, yp, lines(0), lines(1))   # (k, ..., 2, 3, 2, L)
     fs = FP12.select(is_inf, FP12.one(is_inf.shape, fs.device), fs)
     f = fs[0]
     for i in range(1, fs.shape[0]):
@@ -29,7 +34,8 @@ def miller_product(pairs_with_lines):
 
 
 def pairing_check(pairs_with_lines):
-    """prod_i e(P_i, Q_i)^3 == 1 -> 0-d bool tensor.
-    pairs_with_lines: [(G1 point ((24,) coords), (dbl_lines, add_lines))]."""
+    """prod_i e(P_i, Q_i)^3 == 1 -> (...) bool tensor.
+    pairs_with_lines: [(G1 point ((..., 24) coords), (dbl_lines,
+    add_lines))]."""
     e = final_exp(miller_product(pairs_with_lines))
     return FP12.eq(e, FP12.one((), e.device))

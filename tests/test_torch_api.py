@@ -1,6 +1,8 @@
 """The port's entry points: no JAX anywhere in its import graph, no silent
-move to the CPU, and the same setup arrays as the JAX package."""
+move to the CPU, the same setup arrays as the JAX package, and the
+single verify against the known-answer tests and the golden model."""
 
+import json
 import os
 import subprocess
 import sys
@@ -11,6 +13,8 @@ import torch
 
 import golden.model as gold
 import tpukzg_torch as tt
+from tpukzg_torch.curve import g1 as tg1
+from tpukzg_torch.curve.weierstrass_lm import G1_LM
 from tpukzg_torch.field.mont import FP, resolve_device
 from tpukzg_torch.kernels import bucket, ec, fractree, montmul, ntt
 from tpukzg_torch.kzg.setup import Setup
@@ -103,3 +107,85 @@ def test_port_runs_with_jax_blocked(tmp_path):
         capture_output=True, text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "VERDICT True COMMIT True JAXMODS []" in out.stdout
+
+
+with open(os.path.join(REPO, "tests", "vectors", "kat.json")) as _fh:
+    KAT = json.load(_fh)
+
+
+@pytest.fixture(scope="module")
+def ts16():
+    return tt.generate_insecure_setup(TAU, N, device="cpu")
+
+
+def _opening(case):
+    o = KAT[case]
+    return (bytes.fromhex(KAT["kzg"]["commitment"]), int(o["z"], 16),
+            int(o["y"], 16), bytes.fromhex(o["proof"]))
+
+
+def _golden_verify(c, z, y, pf):
+    return gold.verify_kzg_proof(gold.GoldenSetup(TAU, N),
+                                 gold.g1_decompress(c), z, y,
+                                 gold.g1_decompress(pf))
+
+
+def test_verify_kzg_proof_kat(ts16):
+    """The public single verify accepts the KAT opening (z outside the
+    domain), as the golden model does."""
+    c, z, y, pf = _opening("kzg_open")
+    assert tt.verify_kzg_proof(c, z.to_bytes(32, "big"), y.to_bytes(32, "big"),
+                               pf, ts16) is True
+    assert _golden_verify(c, z, y, pf)
+
+
+@pytest.mark.parametrize("bad", ["commitment_flags", "proof_length",
+                                 "z_ge_r", "y_length", "proof_off_curve"])
+def test_verify_kzg_proof_rejects_bad_encodings(ts16, bad):
+    """ValueError, as the JAX package raises on the same inputs."""
+    c, z, y, pf = _opening("kzg_open")
+    zb, yb = z.to_bytes(32, "big"), y.to_bytes(32, "big")
+    if bad == "commitment_flags":          # tests/test_kzg.py:101-103
+        c, zb, yb, pf = (b"\x00" * 48, b"\x00" * 32, b"\x00" * 32,
+                         b"\xc0" + b"\x00" * 47)
+        import tpukzg
+        with pytest.raises(ValueError):
+            tpukzg.verify_kzg_proof(c, zb, yb, pf,
+                                    tpukzg.generate_insecure_setup(TAU, N))
+    elif bad == "proof_length":
+        pf = pf[:47]
+    elif bad == "z_ge_r":
+        zb = gold.R.to_bytes(32, "big")
+    elif bad == "y_length":
+        yb = yb[1:]
+    else:
+        x = 3
+        while gold.fp_sqrt((x ** 3 + 4) % gold.P) is not None:
+            x += 1
+        pf = tg1.compress(x, 0, False)
+    with pytest.raises(ValueError):
+        tt.verify_kzg_proof(c, zb, yb, pf, ts16)
+
+
+def test_repaired_helpers_need_a_device():
+    """decompress_batch and CurveLM.inf take no default device: a caller
+    that forgets it fails instead of running on the CPU."""
+    enc = [gold.g1_compress(gold.G1_GEN)]
+    with pytest.raises(TypeError):
+        tg1.decompress_batch(enc)
+    with pytest.raises(TypeError):
+        G1_LM.inf((1,))
+    pts, ok = tg1.decompress_batch(enc, "cpu")
+    assert pts[0].device == torch.device("cpu") and ok.tolist() == [True]
+    assert G1_LM.inf((2,), "cpu")[1].shape == (24, 2)
+
+
+def test_cli_has_no_bench_yet(capsys):
+    from tpukzg_torch import cli
+    with pytest.raises(SystemExit):
+        cli.main(["--help"])
+    out = capsys.readouterr().out
+    assert "gen-setup" in out and "selftest" in out and "verify" in out
+    assert "No bench command yet" in out
+    with pytest.raises(SystemExit):
+        cli.main(["bench"])

@@ -18,8 +18,8 @@ from tpukzg_torch.field.limb_major import FP_LM_PLAIN
 from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
 from tpukzg_torch.kernels import bucket, ec, fractree, montmul, ntt
 
-from torch_cases import (ec_inputs, long_row_scan_inputs, ntt_inputs,
-                         operands, scan_inputs, srs_points)
+from torch_cases import (SRS16, ec_inputs, long_row_scan_inputs,
+                         ntt_inputs, operands, scan_inputs, srs_points)
 
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
@@ -290,3 +290,126 @@ def test_bucket_kernel_long_rows_on_card(cuda):
     ts = torch.from_numpy(seg).to(cuda)
     assert bool(G1_LM_PLAIN.eq(bucket.seg_scan(tp, ts),
                                bucket.seg_scan_plain(tp, ts)).all())
+
+
+# ---------------------------------------------------------------------------
+# the setup path and the public MSM on the card, against the same code's
+# plain run (or its CPU run, where the code has no plain twin)
+# ---------------------------------------------------------------------------
+
+
+def _srs16(device):
+    from tpukzg_torch.kzg.setup import Setup
+    return Setup.load(SRS16, device=device)
+
+
+@pytest.mark.cuda
+def test_g1_ladder_on_card(cuda):
+    """A 32-lane G1 ladder (scalars 0, 1, r - 1, 2^255 + 1 and seeded
+    ones): each step's add is one ec_add launch, and the limbs equal the
+    plain ladder's (plain products and plain adds) on the card."""
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM
+    from tpukzg_torch.kernels import _build
+    pool = tuple(torch.from_numpy(c).to(cuda) for c in srs_points())
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k = torch.randint(0, 1 << 16, (32, 16), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    k[..., 15] &= 0x3FFF
+    k[:4] = torch.as_tensor(FR.from_int([0, 1, FR.modulus - 1,
+                                         (1 << 255) + 1]), device=cuda)
+    before = _build.launches["ec_add"]
+    got = G1_LM.scalar_mul(pool, k)
+    assert _build.launches["ec_add"] - before == 256
+    want = G1_LM_PLAIN.scalar_mul(pool, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_g2_ladder_and_lines_on_card(cuda):
+    """The G2 ladder and the Miller lines on the card (Fp products by the
+    montmul kernel) give the CPU's limbs; the lines of the committed G2
+    points equal the file's."""
+    from tpukzg_torch.curve.g2 import G2
+    from tpukzg_torch.pairing.lines import precompute_lines
+    cpu, card = _srs16("cpu"), _srs16(cuda)
+    k = torch.as_tensor(FR.from_int([0xDEADBEEF, FR.modulus - 1]))
+    want = G2.scalar_mul(cpu.g2_gen, k)
+    got = G2.scalar_mul(card.g2_gen, k.to(cuda))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    both = tuple(torch.stack([a, b]) for a, b in zip(card.g2_gen,
+                                                     card.g2_tau))
+    d, a = precompute_lines(both)
+    for got_l, want_l in zip((d[0], a[0], d[1], a[1]),
+                             card.lines_gen + card.lines_tau):
+        assert torch.equal(got_l, want_l)
+
+
+@pytest.mark.cuda
+def test_from_compressed_on_card(cuda):
+    """n = 16: the committed SRS compressed and loaded back on the card
+    equals the file in affine form; a point outside G1 is refused."""
+    from tpukzg_torch.curve import g1 as g1m, g2 as g2m
+    from tpukzg_torch.kzg.setup import Setup
+    ref = _srs16(cuda)
+    mono = g1m.compress_points(ref.monomial_g1)
+    lag = g1m.compress_points(ref.lagrange_g1)
+    tau_b = g2m.compress_point(ref.g2_tau)
+    s = Setup.from_compressed(mono, lag, tau_b, device=cuda)
+    assert s.device.type == cuda.type
+    assert g1m.compress_points(s.monomial_g1) == mono
+    assert g1m.compress_points(s.lagrange_g1) == lag
+    assert g2m.compress_point(s.g2_tau) == tau_b
+    for a, b in zip(s.lines_gen + s.lines_tau, ref.lines_gen + ref.lines_tau):
+        assert torch.equal(a, b)
+    x = 4
+    while True:          # on the curve, outside G1: y^2 = x^3 + 4 has roots
+        rhs = (x ** 3 + 4) % FP.modulus
+        y = pow(rhs, (FP.modulus + 1) // 4, FP.modulus)
+        if y * y % FP.modulus == rhs:
+            bad = g1m.compress(x, y, False)
+            _, ok = g1m.decompress_batch([bad], cuda)
+            if not bool(ok.item()):
+                break
+        x += 1
+    with pytest.raises(ValueError):
+        Setup.from_compressed(mono, lag[:-1] + [bad], tau_b, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [8, 16, 1 << 17])
+def test_msm_chunks_on_card(cuda, chunk):
+    """The public MSM over 30 SRS points with seeded scalars (one zero) at
+    a few point chunks, 8 and 16 leaving a pad, equals the same MSM on
+    the CPU in affine form."""
+    from tpukzg_torch.curve import g1 as g1m
+    from tpukzg_torch.msm.pippenger_lm import msm
+    pool = tuple(torch.from_numpy(c[:, :30].T.copy()) for c in srs_points())
+    gen = torch.Generator().manual_seed(7)
+    k = torch.randint(0, 1 << 16, (30, 16), generator=gen, dtype=torch.int32)
+    k[..., 15] &= 0x3FFF
+    k[3] = 0
+    want = msm(pool, k, point_chunk=chunk)
+    got = msm(tuple(c.to(cuda) for c in pool), k.to(cuda), point_chunk=chunk)
+    assert g1m.compress_points(tuple(c.cpu()[None] for c in got)) == \
+        g1m.compress_points(tuple(c[None] for c in want))
+
+
+@pytest.mark.cuda
+def test_verify_kzg_proof_on_card(cuda):
+    """The single verify on the card at n = 16: the KAT opening True, a
+    wrong y False."""
+    import json
+    import os
+    import tpukzg_torch as tt
+    from torch_cases import REPO
+    with open(os.path.join(REPO, "tests", "vectors", "kat.json")) as fh:
+        kat = json.load(fh)
+    ts = tt.generate_insecure_setup(0xDEADBEEF, 16, device=cuda)
+    c = bytes.fromhex(kat["kzg"]["commitment"])
+    o = kat["kzg_open"]
+    z, y = (int(o[k], 16) for k in ("z", "y"))
+    pf = bytes.fromhex(o["proof"])
+    assert tt.verify_kzg_proof(c, z.to_bytes(32, "big"), y.to_bytes(32, "big"),
+                               pf, ts) is True
+    assert tt.verify_kzg_proof(c, z.to_bytes(32, "big"),
+                               (y + 1).to_bytes(32, "big"), pf, ts) is False

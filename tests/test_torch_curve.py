@@ -59,7 +59,7 @@ def encodings():
 
 def test_decompress_batch_vs_jax_and_golden(encodings):
     pts, enc = encodings
-    got, ok = tg1.decompress_batch(enc)
+    got, ok = tg1.decompress_batch(enc, "cpu")
     ref, ok_ref = jg1.decompress_batch(enc)
     for g, r in zip(got, ref):
         assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int32))
@@ -94,7 +94,7 @@ def test_in_subgroup_fast_vs_jax_and_golden(encodings):
 ], ids=["uncompressed", "inf-body", "inf-sign", "x-ge-p", "short"])
 def test_malformed_encodings_raise_like_jax(bad):
     with pytest.raises(ValueError):
-        tg1.decompress_batch([bad])
+        tg1.decompress_batch([bad], "cpu")
     with pytest.raises(ValueError):
         jg1.decompress(bad)
 
@@ -102,7 +102,7 @@ def test_malformed_encodings_raise_like_jax(bad):
 def test_group_law_vs_jax_lm():
     pts = _golden_points(22, 4)
     enc = [gold.g1_compress(p) for p in pts]
-    got, _ = tg1.decompress_batch(enc)
+    got, _ = tg1.decompress_batch(enc, "cpu")
     lm = tuple(c.T.contiguous() for c in got)               # (24, 4)
     p = tuple(c[:, :2] for c in lm)
     q = tuple(c[:, 2:] for c in lm)

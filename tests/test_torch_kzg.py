@@ -35,7 +35,8 @@ def msm_case():
             for _ in range(7)]
     scal = [rng.randrange(gold.R) for _ in range(7)]
     scal[3] = 0                                          # an inert term
-    pts, ok = tg1.decompress_batch([gold.g1_compress(p) for p in gpts])
+    pts, ok = tg1.decompress_batch([gold.g1_compress(p) for p in gpts],
+                                   "cpu")
     assert bool(ok.all())
     return gpts, scal, pts, torch.from_numpy(FR.from_int(scal))
 
@@ -73,7 +74,7 @@ def setup16():
 
 
 def _pt(gp):
-    pts, _ = tg1.decompress_batch([gold.g1_compress(gp)])
+    pts, _ = tg1.decompress_batch([gold.g1_compress(gp)], "cpu")
     return tuple(c[0] for c in pts)
 
 

@@ -121,7 +121,7 @@ def test_fold_msm_matches_jax_kzg(ts, triples):
     zs, _, _, y = _front_half(ts, blobs, cs)
     ys = [FR.to_int(r) for r in y]
     _, rho = transcript.compute_r_powers(cs, zs, ys, pfs, N)
-    pts, ok = tg1.decompress_batch(cs + pfs)
+    pts, ok = tg1.decompress_batch(cs + pfs, "cpu")
     assert bool(ok.all())
     c_pts = tuple(c[:k] for c in pts)
     pi_pts = tuple(c[k:] for c in pts)

@@ -4,25 +4,40 @@
     python3 chip_smoke.py            # one card, no arguments
     python3 chip_smoke.py --bary SRC # barycentric_eval of SRC/tpukzg_torch
                                      # alone, timed (see bary_main)
+    python3 chip_smoke.py --verify SRC  # the k=256 verify of
+                                     # SRC/tpukzg_torch alone, timed and
+                                     # counted (see verify_main)
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit) and torch's CUDA version;
   2. the kernels built from csrc/ (nvcc), with the build seconds, and
      each source's kernels with their registers and spill (ptxas);
      B2, B3, B4 and B5 must spill nothing;
-  3. B1 montmul (Fp, Fr; 2^20 lanes) and B2 ec_add (2^16 lanes) against
-     their plain tensor versions, bit for bit;
+  3. B1 montmul (Fp, Fr; 2^20 lanes), B2 ec_add (2^16 lanes) and B6
+     ec_double (2^16 lanes, one doubling) against their plain tensor
+     versions, bit for bit;
   4. the main path: verify_blob_kzg_proof_batch on the n=4096 SRS and the
      bench fixtures — a k=8 warm-up, k=256 (True, launch counts taken
      around this run alone), k=256 with one tampered proof byte (False)
      and k=256 with two proofs swapped (False, decided by the pairing);
-     then one more k=256 verify with its tensor ops counted, and one
-     under torch.profiler for the device's busy share;
-  5. B3 bucket scan and B4 fraction tree against their plain versions on
-     the very inputs the k=256 run gave them (one z moved in-domain); B3
-     launched twice must give the same limbs;
+     then the async entry on the valid batch (True; resolved at once it
+     is the sync path, timed); bench.py's pipelined schedule over four
+     k=256 batches (valid, tampered, swapped, valid: True, False, False,
+     True, as the sync path), stages 1 and 2 under sync debug mode
+     "error" but for the y readback, then again without the debug mode
+     for the sustained seconds a batch; the chunked entry at chunk 64 (True, and
+     False with one blob of the third chunk tampered); then one more
+     k=256 verify with its tensor ops counted, and one under
+     torch.profiler for the device's busy share;
+  5. B6 ec_double against its plain version on the runs the k=256 verify
+     gave it (the fold's 2 lanes x 8, the subgroup check's 512 lanes x
+     32), then B3 bucket scan and B4 fraction tree on the very inputs
+     the k=256 run gave them (one z moved in-domain); B3 launched twice
+     must give the same limbs;
   6. the prover path on the 16 fixture blobs (launch counts taken around
-     each step alone): blob_to_kzg_commitment_batch and
+     each step alone): the fixed-base tables (B6 held against its plain
+     version on one window's run of 4096 lanes x 11),
+     blob_to_kzg_commitment_batch and
      compute_blob_kzg_proof_batch byte-equal to the fixture, accepted by
      verify_blob_kzg_proof_batch, and one more commit batch under
      torch.profiler for the device's busy share; interpolate (iNTT,
@@ -49,7 +64,8 @@ Phases, each printed on its own line:
      inputs refused; verify_kzg_proof True for an out-of-domain and an
      in-domain z, False for a wrong y and a wrong proof; the public MSM
      over 2^20 points (8 chunks of 2^17) equal to [sum k_i d_i] G1, and
-     B3 on one row of a chunk against its plain version;
+     B3 on one row of a chunk against its plain version; B6's launches on
+     every path;
   9. one JSON line of kernel numbers, then the result line.
 Any failure exits non-zero before the result line.  The script never
 falls back to the CPU and imports neither JAX nor the JAX package.
@@ -86,6 +102,7 @@ def montmul_ops(words: int) -> int:
 
 
 EC_ADD_OPS = 12 * montmul_ops(12)
+EC_DOUBLE_OPS = 8 * montmul_ops(12)
 REPS = 10          # timed launches per kernel (median reported)
 
 
@@ -390,6 +407,74 @@ def capture_ec_add(torch, fn, lanes: int, nth: int):
     return out, cap["pq"]
 
 
+def hold_ec_double(torch, p, times: int, reps: int):
+    """B6 (a run of `times` doublings, one launch) against its plain
+    version on p, and both timed -> the kernel entry's numbers."""
+    from tpukzg_torch.field.limb_major import FP_LM_PLAIN
+    from tpukzg_torch.kernels import ec
+    p = tuple(c.contiguous() for c in torch.broadcast_tensors(*p))
+    got = ec.ec_double(p, times)
+    want = ec.ec_double_plain(p, FP_LM_PLAIN, times)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max().item())
+              for g, w in zip(got, want))
+    lanes = p[0].numel() // 24
+    check(err == 0, f"ec_double x{times} on {lanes} lanes: kernel != plain "
+          f"(max limb err {err})")
+    ms = cuda_ms(torch, lambda: ec.ec_double(p, times), reps)
+    pms = cuda_ms(torch, lambda: ec.ec_double_plain(p, FP_LM_PLAIN, times),
+                  1)
+    # each point read once and written once; t doublings of 8 products
+    bms, by = bound_ms(6 * lanes * 24 * 4, lanes * times * EC_DOUBLE_OPS)
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, shape=list(p[0].shape), times=times)
+
+
+def check_ec_double(torch, pool, lanes: int, gen, reps: int):
+    """B6 at t = 1 on random SRS points and infinity against one plain
+    double."""
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
+    dev = torch.device("cuda")
+    idx = torch.randint(0, pool[0].shape[1], (lanes,), generator=gen,
+                        device=dev)
+    p = [c[:, idx].clone() for c in pool]
+    inf = G1_LM_PLAIN.inf((1,), dev)
+    for c in range(3):
+        p[c][:, 0] = inf[c][:, 0]
+    r = hold_ec_double(torch, tuple(p), 1, reps)
+    r["check"] = f"bit-exact in all {lanes} lanes incl. infinity, t = 1"
+    return r
+
+
+class DoubleRuns:
+    """Keeps the inputs of B6's first call at each wanted (lanes, times)
+    while active: `with DoubleRuns(torch, [(2, 8)]) as cap: ...`, then
+    cap.got[(2, 8)] = (p, times)."""
+
+    def __init__(self, torch, wanted):
+        self.torch, self.wanted, self.got = torch, set(wanted), {}
+
+    def __enter__(self):
+        from tpukzg_torch.kernels import ec
+        self.orig = orig = ec.ec_double
+
+        def rec(p, times=1):
+            lanes = self.torch.broadcast_shapes(
+                *(c.shape for c in p))[1:].numel()
+            key = (lanes, times)
+            if key in self.wanted and key not in self.got:
+                self.got[key] = (tuple(c.clone() for c in p), times)
+            return orig(p, times)
+
+        ec.ec_double = rec
+        return self
+
+    def __exit__(self, *exc):
+        from tpukzg_torch.kernels import ec
+        ec.ec_double = self.orig
+        return False
+
+
 def scan_adds(torch, seg) -> int:
     """EC adds an inclusive segmented scan needs on these keys: one for
     each lane whose key equals its left neighbour's."""
@@ -540,6 +625,54 @@ def alternatives(torch, ntt_x, big_x, plan, big, ft_in, reps: int):
     return out
 
 
+def pipeline_path(torch, ts, batches, strict_mode: bool):
+    """bench.py's 3-stage schedule (bench.py:220-251) over `batches`:
+    batch i+1's stage 1, batch i's stage 2, batch i-1's verdict; the last
+    drained.  With `strict_mode`, stage 1 (the constructor) and stage2()
+    run under sync debug mode "error", all but the y readback (the one
+    sync of a batch before its verdict); result() outside it.  ->
+    (verdicts, wall s, fill and drain included)."""
+    import tpukzg_torch
+    from tpukzg_torch.kzg import blob
+    real = blob._y_to_host
+
+    def exempt(y):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(y)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    def strict(fn, *args):
+        if not strict_mode:
+            return fn(*args)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    start = tpukzg_torch.verify_blob_kzg_proof_batch_pipeline
+    blob._y_to_host = exempt
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pend = [strict(start, *batches[0], ts)]
+        out = []
+        for i in range(len(batches)):
+            if i + 1 < len(batches):
+                pend.append(strict(start, *batches[i + 1], ts))
+            strict(pend[i].stage2)
+            if i > 0:
+                out.append(pend[i - 1].result())
+        out.append(pend[-1].result())
+        wall = time.perf_counter() - t0
+    finally:
+        blob._y_to_host = real
+    return out, wall
+
+
 def run_path(torch, fn):
     """fn() with the kernel counts set to 0 just before and read just
     after -> (result, wall s, launches by kernel)."""
@@ -565,15 +698,18 @@ def prover_path(torch, ts, say_path):
 
     blobs, cs, pfs = load_triples(ts.n, 16)
     k, kzg, paths = len(blobs), ts.kzg, {}
-    t0 = time.perf_counter()
-    kzg.table("lag")
-    kzg.table("mono")
-    torch.cuda.synchronize()
+    run = (ts.n, kzg.c_commit)                 # a table window's run
+    with DoubleRuns(torch, [run]) as dbl:
+        _, wall, paths["tables"] = run_path(
+            torch, lambda: (kzg.table("lag"), kzg.table("mono")))
     say(f"[prover tables] lag + mono fixed-base tables (c = "
         f"{kzg.c_commit}, {kzg.table('lag')[0].shape[1]} windows) in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{wall:.3f} s; kernel launches {json.dumps(paths['tables'])}")
 
     captured = {}
+    check(run in dbl.got, f"no B6 run of {run[1]} on {run[0]} lanes in the "
+          "table build")
+    captured["table_run"] = dbl.got[run]
     orig = bucket._launch
 
     def rec(pts, seg):
@@ -1027,6 +1163,11 @@ def main() -> int:
     results["ec_add"] = r
     say(f"[B2 ec_add] ok, {r['check']}: {r['ms']:.4f} ms "
         f"(plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms)")
+    dbl_pool = check_ec_double(torch, pool, 1 << 16, gen, REPS)
+    say(f"[B6 ec_double {dbl_pool['shape']}] ok, {dbl_pool['check']}: "
+        f"{dbl_pool['ms']:.4f} ms (plain {dbl_pool['plain_ms']:.2f} ms, "
+        f"bound {dbl_pool['bound_ms']:.4f} ms by {dbl_pool['bound_by']}) "
+        f"[{card}]")
 
     # 4. the main path
     k_main = 256
@@ -1050,15 +1191,20 @@ def main() -> int:
         captured.setdefault("fractree", (evals, z, roots))
         return orig_ft(evals, z, roots)
 
+    # B6's inputs: the fold's Horner runs (2 lanes, c = 8) and the
+    # longest run of the subgroup check's chain on the 2k decompressed
+    # points (32 doublings)
+    fold_run, x_run = (2, 8), (2 * k_main, 32)
     bucket._launch, fractree.fractree_partials = rec_launch, rec_ft
     try:
-        _build.launches.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, pfs, ts)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(_build.launches)
+        with DoubleRuns(torch, [fold_run, x_run]) as dbl:
+            _build.launches.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, pfs, ts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.launches)
     finally:
         bucket._launch, fractree.fractree_partials = orig_launch, orig_ft
     phases = dict(ts.blob.last_phases)
@@ -1087,10 +1233,54 @@ def main() -> int:
     check(ok_swap is False, "batch with swapped proofs did not fail")
     check("fold_msm" in swap_phases and "pairing" in swap_phases,
           "batch with swapped proofs was not decided by the pairing")
+
+    # 4b. the pipelined, async and chunked entry points
+    ts.blob.timing = False
+    tampered = pfs[:k_main // 2] + [bytes(bad)] + pfs[k_main // 2 + 1:]
+    batches = [(blobs, cs, pfs), (blobs, cs, tampered), (blobs, cs, swapped),
+               (blobs, cs, pfs)]
+    sync_verdicts = [ok, ok_bad, ok_swap, ok]
+    # resolved at once, the async entry is the sync path (with no phase
+    # syncs): its wall is the one the pipeline is compared with
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resolve = tpukzg_torch.verify_blob_kzg_proof_batch_async(blobs, cs, pfs,
+                                                             ts)
+    ok_async = resolve()
+    async_wall = time.perf_counter() - t0
+    check(ok_async is True, "the async verify of the valid batch failed")
+    verdicts, strict_wall = pipeline_path(torch, ts, batches, True)
+    check(verdicts == [True, False, False, True] == sync_verdicts,
+          f"pipelined verdicts {verdicts}, sync {sync_verdicts}")
+    again, pipe_wall = pipeline_path(torch, ts, batches, False)
+    check(again == verdicts, f"pipelined verdicts {again} the second time")
+    say(f"[pipeline k={k_main}] bench.py's schedule over 4 batches (valid, "
+        f"tampered proof, swapped proofs, valid): verdicts {verdicts} (sync "
+        f"path {sync_verdicts}); stages 1 and 2 passed under sync debug "
+        f"mode \"error\" but for the y readback ({strict_wall:.3f} s in "
+        f"all); run again without it: {pipe_wall:.3f} s in all, sustained "
+        f"{pipe_wall / len(batches):.3f} s a batch, fill and drain included "
+        f"(sync path {async_wall:.3f} s a batch, the async entry resolved "
+        f"at once) [{card}]")
+    chunk_walls, chunk_ok = [], []
+    bad_i = 2 * 64 + 5                        # in the third chunk of 64
+    bad_blob = bytearray(blobs[bad_i])
+    bad_blob[31] ^= 1                         # element 0's lowest bit
+    for bl in (blobs, blobs[:bad_i] + [bytes(bad_blob)] + blobs[bad_i + 1:]):
+        t0 = time.perf_counter()
+        chunk_ok.append(tpukzg_torch.verify_blob_kzg_proof_batch_chunked(
+            bl, cs, pfs, ts, chunk=64))
+        chunk_walls.append(time.perf_counter() - t0)
+    say(f"[async k={k_main}] {ok_async} in {async_wall:.3f} s; [chunked "
+        f"k={k_main}, chunk 64] valid {chunk_ok[0]} in {chunk_walls[0]:.3f} "
+        f"s, blob {bad_i} tampered (chunk 3) {chunk_ok[1]} in "
+        f"{chunk_walls[1]:.3f} s [{card}]")
+    check(chunk_ok == [True, False], f"chunked verdicts {chunk_ok}")
     ops = count_dispatch(torch, lambda: tpukzg_torch.verify_blob_kzg_proof_batch(
         blobs, cs, pfs, ts))
     say(f"[slice k={k_main}] one more verify, counted: {ops} tensor ops "
-        "dispatched to the card (kernel launches of the port included)")
+        "dispatched to the card (kernel launches of the port included) "
+        f"[{card}]")
     wall_p, busy, n_dev, top = device_busy(
         torch, lambda: tpukzg_torch.verify_blob_kzg_proof_batch(
             blobs, cs, pfs, ts))
@@ -1103,7 +1293,16 @@ def main() -> int:
         say(f"[slice k={k_main}] device busy share not measured: the "
             "profiler trace holds no device events")
 
-    # 5. B3, B4 on the main path's own inputs
+    # 5. B6, B3, B4 on the main path's own inputs
+    b6 = {}
+    for key, name in ((fold_run, "verify fold, Horner run"),
+                      (x_run, "decompress, subgroup check's longest run")):
+        check(key in dbl.got, f"no B6 call on {key[0]} lanes x{key[1]} in "
+              "the k = 256 verify")
+        r = b6[name] = hold_ec_double(torch, *dbl.got[key], REPS)
+        say(f"[B6 ec_double {r['shape']} x{r['times']}, {name}] ok, "
+            f"bit-exact vs plain: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} "
+            f"ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}) [{card}]")
     seg_key = [key for key in captured if key != "fractree"]
     check(len(seg_key) == 2, f"bucket scan inputs captured: {seg_key}")
     parts = []
@@ -1142,6 +1341,11 @@ def main() -> int:
 
     paths, cap_fixed, ntt_in = prover_path(torch, ts, say_path)
     paths["verify"] = launches
+    r = b6["table build, a window's run"] = hold_ec_double(
+        torch, *cap_fixed["table_run"], REPS)
+    say(f"[B6 ec_double {r['shape']} x{r['times']}, table build] ok, "
+        f"bit-exact vs plain: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, "
+        f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}) [{card}]")
 
     # 7. B5, B4 and the fixed-base B3 on the prover path's own inputs
     from tpukzg_torch.ntt.ntt import get_plan
@@ -1248,15 +1452,28 @@ def main() -> int:
              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
              f"{r['bound_by']}, {r['adds']} adds; device kernels launched "
              f"and their blocks {json.dumps(r['grid'])})")
-    for path, need in (("setup_gen", ("ec_add", "montmul_fp")),
-                       ("from_compressed", ("ec_add", "montmul_fp")),
-                       ("verify_kzg_proof", ("ec_add", "montmul_fp")),
-                       ("msm_2^20", ("bucket_scan", "ec_add", "montmul_fp"))):
+    say_card("[B6 ec_double] launches by path "
+             f"{json.dumps({p: c.get('ec_double', 0) for p, c in paths.items()})}")
+    for path, need in (("setup_gen", ("ec_add", "ec_double", "montmul_fp")),
+                       ("from_compressed", ("ec_add", "ec_double",
+                                            "montmul_fp")),
+                       ("verify_kzg_proof", ("ec_add", "ec_double",
+                                             "montmul_fp")),
+                       ("msm_2^20", ("bucket_scan", "ec_add", "ec_double")),
+                       ("tables", ("ec_double",))):
         for kern in need:
             check(paths[path].get(kern, 0) > 0,
                   f"{kern} was not launched on the {path} path")
 
     # 9. report
+    fold = dict(b6["verify fold, Horner run"])
+    fold["check"] = ("bit-exact vs plain at every captured run: the verify "
+                     "fold's, the subgroup check's, a table window's; and "
+                     "at t = 1 on 2^16 lanes incl. infinity")
+    fold["other_shapes"] = {name: r for name, r in b6.items()
+                            if name != "verify fold, Horner run"}
+    fold["other_shapes"]["pool, t = 1"] = dbl_pool
+    results["ec_double"] = fold
     meta = {
         "montmul_fp": ("src/tpukzg_torch/csrc/montmul.cu",
                        "src/tpukzg/pallas/montmul.py:133"),
@@ -1264,6 +1481,8 @@ def main() -> int:
                        "src/tpukzg/pallas/montmul.py:133"),
         "ec_add": ("src/tpukzg_torch/csrc/ec.cu",
                    "src/tpukzg/pallas/ec.py:71"),
+        "ec_double": ("src/tpukzg_torch/csrc/ec.cu",
+                      "src/tpukzg/pallas/ec.py:103"),
         "bucket_scan": ("src/tpukzg_torch/csrc/bucket.cu",
                         "src/tpukzg/pallas/bucket.py:117"),
         "fractree": ("src/tpukzg_torch/csrc/fractree.cu",
@@ -1279,7 +1498,8 @@ def main() -> int:
     path_of = {"bucket_scan_fixed": ("commit_batch", "bucket_scan"),
                "ntt": ("coeff", "ntt"),
                "bucket_scan_msm": ("msm_2^20", "bucket_scan")}
-    regs = {"ec_add": ptxas["ec.cu"], "bucket_scan": ptxas["bucket.cu"],
+    regs = {"ec_add": ptxas["ec.cu"], "ec_double": ptxas["ec.cu"],
+            "bucket_scan": ptxas["bucket.cu"],
             "bucket_scan_fixed": ptxas["bucket.cu"],
             "bucket_scan_msm": ptxas["bucket.cu"],
             "fractree": ptxas["fractree.cu"], "ntt": ptxas["ntt.cu"]}
@@ -1298,6 +1518,7 @@ def main() -> int:
                             bound_by=r["bound_by"], library_ms=None,
                             shape=r["shape"], check=r.get("check", ""),
                             **{k: r[k] for k in ("other_shapes", "grid",
+                                                 "times",
                                                  "device_kernels",
                                                  "call_ms",
                                                  "alternatives",
@@ -1365,10 +1586,57 @@ def bary_main(src: str) -> int:
     return 0
 
 
+def verify_main(src: str) -> int:
+    """`chip_smoke.py --verify SRC`: the k = 256 batch verify of the
+    package SRC/tpukzg_torch alone, on the n = 4096 SRS and the fixtures
+    -> one JSON line: the wall of each of three timed verifies (after a
+    warm-up; no phase syncs), the phases of one more (each phase ending
+    in a sync), its tensor ops (count_dispatch) and its launches.  Run it
+    on two trees in one machine call, in turns, to compare them."""
+    import torch
+    if not torch.cuda.is_available():
+        say("FAIL: torch.cuda.is_available() is false; this script needs a "
+            "CUDA card")
+        return 1
+    sys.path.insert(0, os.path.abspath(src))
+    import tpukzg_torch
+    from tpukzg_torch.kernels import _build
+    from tpukzg_torch.kzg.fixtures import load_triples
+    assert "jax" not in sys.modules and "tpukzg" not in sys.modules
+    _build.lib()
+    ts = tpukzg_torch.generate_insecure_setup(0xDEADBEEF, 4096)
+    blobs, cs, pfs = load_triples(4096, 16, 256)
+
+    def one():
+        return tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, pfs, ts)
+
+    check(one() is True, "the warm-up verify failed")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(one() is True, "a timed verify failed")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    ts.blob.timing = True
+    _build.launches.clear()
+    one()
+    launches = dict(_build.launches)
+    phases = {k: round(v, 4) for k, v in ts.blob.last_phases.items()}
+    ts.blob.timing = False
+    out = dict(src=src, k=256, walls=walls, wall_median=statistics.median(
+        walls), phases=phases, launches=launches,
+        tensor_ops=count_dispatch(torch, one), card=card_line())
+    say(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--bary"] and len(sys.argv) == 3:
             rc = bary_main(sys.argv[2])
+        elif sys.argv[1:2] == ["--verify"] and len(sys.argv) == 3:
+            rc = verify_main(sys.argv[2])
         else:
             rc = main()
     except Fail as e:

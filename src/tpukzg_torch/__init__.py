@@ -19,5 +19,8 @@ from tpukzg_torch.api import (  # noqa: F401
     load_trusted_setup,
     verify_blob_kzg_proof,
     verify_blob_kzg_proof_batch,
+    verify_blob_kzg_proof_batch_async,
+    verify_blob_kzg_proof_batch_chunked,
+    verify_blob_kzg_proof_batch_pipeline,
     verify_kzg_proof,
 )

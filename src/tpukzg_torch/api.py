@@ -7,6 +7,11 @@
     ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, pfs, ts)
     ok = tpukzg_torch.verify_kzg_proof(c, z_bytes, y_bytes, proof, ts)
 
+    resolve = tpukzg_torch.verify_blob_kzg_proof_batch_async(blobs, cs, pfs, ts)
+    pend = tpukzg_torch.verify_blob_kzg_proof_batch_pipeline(blobs, cs, pfs, ts)
+    pend.stage2(); ok = pend.result()
+    ok = tpukzg_torch.verify_blob_kzg_proof_batch_chunked(blobs, cs, pfs, ts)
+
 Coefficient-form and field-level calls live on ``ts.kzg`` (``interpolate``,
 ``to_evals``, ``commit``, ``commit_coeff``, ``open``, ``open_coeff``,
 ``eval_at``).
@@ -49,7 +54,8 @@ def load_trusted_setup(g1_monomial_bytes, g1_lagrange_bytes, g2_tau_bytes,
 
 
 def load_setup_file(path: str, device=None) -> TrustedSetup:
-    """Load a layout-v2 .npz SRS written by the JAX package."""
+    """Load a .npz SRS written by the JAX package (layout v2; a layout-v1
+    file, which has no Miller lines, gets them computed)."""
     return TrustedSetup(_Setup.load(path, device))
 
 
@@ -95,3 +101,33 @@ def verify_blob_kzg_proof_batch(blobs, commitment_bytes_list,
     return ts.blob.verify_blob_kzg_proof_batch(
         blobs, commitment_bytes_list, proof_bytes_list)
 
+
+
+def verify_blob_kzg_proof_batch_async(blobs, commitment_bytes_list,
+                                      proof_bytes_list, ts: TrustedSetup):
+    """Dispatch the front half now; returns resolve() -> bool.  Lets a
+    serving loop overlap batch i+1's upload with batch i's device work
+    (see BlobKzg.verify_blob_kzg_proof_batch_async)."""
+    return ts.blob.verify_blob_kzg_proof_batch_async(
+        blobs, commitment_bytes_list, proof_bytes_list)
+
+
+def verify_blob_kzg_proof_batch_pipeline(blobs, commitment_bytes_list,
+                                         proof_bytes_list, ts: TrustedSetup):
+    """3-stage pipelined verify: returns a pending batch with .stage2()
+    (y sync + verify dispatch, non-blocking) and .result() -> bool, so a
+    serving loop keeps the device queue full across batches (see
+    BlobKzg.verify_blob_kzg_proof_batch_pipeline)."""
+    return ts.blob.verify_blob_kzg_proof_batch_pipeline(
+        blobs, commitment_bytes_list, proof_bytes_list)
+
+
+def verify_blob_kzg_proof_batch_chunked(blobs, commitment_bytes_list,
+                                        proof_bytes_list, ts: TrustedSetup,
+                                        chunk: int = 64,
+                                        retries: int = 1) -> bool:
+    """Verify in chunks of `chunk` blobs, retrying a chunk that raises
+    `retries` times before the error propagates."""
+    return ts.blob.verify_blob_kzg_proof_batch_chunked(
+        blobs, commitment_bytes_list, proof_bytes_list,
+        chunk=chunk, retries=retries)

@@ -21,10 +21,12 @@ import time
 
 def _cmd_gen_setup(args):
     from tpukzg_torch.kzg.setup import Setup
+    from tpukzg_torch.utils.config import KzgConfig
 
-    s = Setup.generate_insecure(int(args.tau, 0), args.n, device=args.device)
+    n = args.n if args.n is not None else KzgConfig.from_env().degree
+    s = Setup.generate_insecure(int(args.tau, 0), n, device=args.device)
     s.save(args.out)
-    print(f"wrote n={args.n} SRS to {args.out}")
+    print(f"wrote n={n} SRS to {args.out}")
 
 
 def _cmd_selftest(args):
@@ -70,7 +72,8 @@ def main(argv=None):
     g = sub.add_parser("gen-setup", parents=[common],
                        help="generate an insecure dev SRS")
     g.add_argument("--tau", default="0xDEADBEEF")
-    g.add_argument("--n", type=int, default=4096)
+    g.add_argument("--n", type=int, default=None,
+                   help="degree; default from KzgConfig (TPUKZG_DEGREE)")
     g.add_argument("--out", required=True)
     g.set_defaults(fn=_cmd_gen_setup)
 

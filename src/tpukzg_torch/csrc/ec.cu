@@ -1,4 +1,6 @@
-// B2 launcher: elementwise complete G1 addition, one thread per point.
+// B2 launcher: elementwise complete G1 addition, one thread per point;
+// B6 launcher: a run of complete G1 doublings, one thread per point (at
+// the end of this file).
 //
 // A thin launcher around the device function ec_add of ec.cuh (which
 // replaces tpukzg/pallas/ec.py::ec_add inside the bucket-scan kernel),
@@ -40,6 +42,35 @@ ec_add_kernel(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
   tk::ec_add(tk::Limbs{ox + off, oy + off, oz + off, ls}, p, q, w);
 }
 
+// B6: each thread doubles its point `times` times in a row.  The point
+// stays in shared memory (36 words, and 12 for a temporary) from the load to
+// the store, so a run of t doublings reads and writes device memory once:
+// 8 t Fp products (~2,400 t word products) against 576 bytes, so the
+// multiplies bound it.  On many lanes registers set how many warps hide
+// their latency, as for ec_add: 128 threads a block, at most 128
+// registers a thread, 4 blocks an SM.  On few lanes (the Horner fold's 2,
+// the subgroup check's 2k) one thread's chain of 8 t dependent products
+// sets the time, ~20 us a doubling.  Layout as ec_add_kernel's.
+constexpr int kSmemDouble = (36 + 12) * kThreads * 4;
+
+__global__ void __launch_bounds__(kThreads, 4)
+ec_double_kernel(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                 int32_t* __restrict__ oz, const int32_t* __restrict__ x,
+                 const int32_t* __restrict__ y,
+                 const int32_t* __restrict__ z, long long n, long long es,
+                 long long ls, int times) {
+  extern __shared__ uint32_t smem[];
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const long long off = i * es;
+  uint32_t* mine = smem + threadIdx.x;
+  const tk::Words p{mine, kThreads}, w{mine + 36 * kThreads, kThreads};
+  tk::load_point(p, x + off, y + off, z + off, ls);
+#pragma unroll 1
+  for (int t = 0; t < times; ++t) tk::ec_double(p, w);
+  tk::Limbs{ox + off, oy + off, oz + off, ls}.store(p);
+}
+
 }  // namespace
 
 extern "C" int tpukzg_ec_add(void* ox, void* oy, void* oz, const void* x1,
@@ -54,5 +85,20 @@ extern "C" int tpukzg_ec_add(void* ox, void* oy, void* oz, const void* x1,
       (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const int32_t*)x1,
       (const int32_t*)y1, (const int32_t*)z1, (const int32_t*)x2,
       (const int32_t*)y2, (const int32_t*)z2, n, es, ls);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpukzg_ec_double(void* ox, void* oy, void* oz, const void* x,
+                                const void* y, const void* z, long long n,
+                                long long es, long long ls, int times,
+                                void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ec_double_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemDouble);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  ec_double_kernel<<<blocks, kThreads, kSmemDouble, (cudaStream_t)stream>>>(
+      (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const int32_t*)x,
+      (const int32_t*)y, (const int32_t*)z, n, es, ls, times);
   return (int)cudaGetLastError();
 }

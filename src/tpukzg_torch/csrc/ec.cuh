@@ -1,4 +1,5 @@
-// B2: complete projective addition on G1: y^2 = x^3 + 4 over Fp.
+// B2: complete projective addition on G1: y^2 = x^3 + 4 over Fp, and
+// B6: complete projective doubling (ec_double, at the end of this file).
 //
 // Replaces the device function tpukzg/pallas/ec.py::ec_add (Renes-
 // Costello-Batina 2015, Alg. 7, a = 0, b3 = 3b = 12): 12 Montgomery
@@ -213,6 +214,12 @@ __device__ __forceinline__ void fp_mul_small3(uint32_t* r, const uint32_t* a) {
   add_mod<FpT>(r, a, d);
 }
 
+__device__ __forceinline__ void fp_mul_small8(uint32_t* r, const uint32_t* a) {
+  add_mod<FpT>(r, a, a);
+  add_mod<FpT>(r, r, r);
+  add_mod<FpT>(r, r, r);
+}
+
 __device__ __forceinline__ void fp_mul_small12(uint32_t* r, const uint32_t* a) {
   uint32_t d4[12], d8[12];
   add_mod<FpT>(d4, a, a);
@@ -277,6 +284,46 @@ __device__ __forceinline__ void ec_add(const R& r, const Words& p,
   fp_mul(a, t0, op);                // 3 X1 X2 t3
   add_mod<FpT>(t2, t2, a);
   r.put(2, t2);
+}
+
+// B6: p = 2 p in place, with w one 12-word field element of room for a
+// temporary.
+// Replaces tpukzg/pallas/ec.py::ec_double (RCB15 Alg. 9, a = 0,
+// b3 = 12): 8 Montgomery products and products by 8, 12 and 3, no
+// branches, correct for infinity and for points of order 2 (none on
+// G1).  Each step computes the same field value as pallas/ec.py:103-122,
+// so the output is bit-identical to the reference.  Doubling reads its
+// inputs more than adding does (Y Y, Y Z, X Y), so X, Y and Z stay in
+// shared memory until their last product, then their words take the
+// temporaries that two products each read (8 Y^2, Y^2 + 3b Z^2) and the
+// results; X Y waits in w.  At most four 12-word temporaries, one
+// operand and one product's accumulator are live at once.
+__device__ __forceinline__ void ec_double(const Words& p, const Words& w) {
+  uint32_t a[12], t0[12], t1[12], t2[12];
+  p.get(0, a);
+  fp_mul(t0, a, p.at(1));           // X Y
+  w.put(0, t0);
+  p.get(1, a);
+  fp_mul(t1, a, p.at(2));           // Y Z
+  fp_mul(t0, a, p.at(1));           // Y^2
+  p.get(2, a);
+  fp_mul(t2, a, p.at(2));           // Z^2: the last read of X, Y, Z
+  fp_mul_small12(t2, t2);           // 3b Z^2
+  fp_mul_small8(a, t0);
+  p.put(0, a);                      // 8 Y^2 in X's words
+  add_mod<FpT>(a, t0, t2);
+  p.put(1, a);                      // Y^2 + 3b Z^2 in Y's words
+  fp_mul_small3(a, t2);
+  sub_mod<FpT>(t0, t0, a);          // t6 = Y^2 - 9b Z^2
+  fp_mul(t1, t1, p.at(0));          // Z3 = 8 Y^3 Z
+  p.put(2, t1);
+  fp_mul(t1, t2, p.at(0));          // 3b Z^2 8 Y^2
+  fp_mul(t2, t0, p.at(1));          // t6 (Y^2 + 3b Z^2)
+  add_mod<FpT>(t1, t2, t1);
+  p.put(1, t1);                     // Y3
+  fp_mul(t2, t0, w.at(0));          // t6 X Y
+  add_mod<FpT>(t2, t2, t2);
+  p.put(0, t2);                     // X3 = 2 t6 X Y
 }
 
 }  // namespace tk

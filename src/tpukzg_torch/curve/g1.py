@@ -10,8 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpukzg_torch.field.mont import FP, P_MOD
+from tpukzg_torch.field.mont import FP, I32, P_MOD, upload
 from tpukzg_torch.curve.weierstrass_lm import G1_LM
+from tpukzg_torch.utils.config import KzgConfig
 
 G1_X = 0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83FF97A1AEFFB3AF00ADB22C6BB
 G1_Y = 0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1
@@ -81,8 +82,7 @@ _X_SEGS = _x_addition_chain()
 def _mul_by_abs_x_lm(p, curve=G1_LM):
     acc = p
     for n_doubles, then_add in _X_SEGS:
-        for _ in range(n_doubles):
-            acc = curve.double(acc)
+        acc = curve.double_n(acc, n_doubles)
         if then_add:
             acc = curve.add(acc, p)
     return acc
@@ -94,7 +94,7 @@ def in_subgroup_fast(p, curve=G1_LM):
     plm = tuple(c.movedim(-1, 0) for c in p)
     lam_p = curve.add(_mul_by_abs_x_lm(_mul_by_abs_x_lm(plm, curve), curve),
                       curve.neg(plm))
-    beta = torch.as_tensor(_BETA_MONT, device=plm[0].device).reshape(
+    beta = upload(_BETA_MONT, plm[0].device).reshape(
         (FP.L,) + (1,) * (plm[0].dim() - 1))
     phi = (curve.F.mul(plm[0], beta), plm[1], plm[2])
     return curve.eq(phi, lam_p) & curve.is_on_curve(plm)
@@ -113,12 +113,12 @@ def _decompress_sqrt(x_can, sign, inf):
     ((X, Y, Z) Montgomery projective, ok_curve)."""
     xm = FP.to_mont(x_can)
     rhs = FP.add(FP.mul(FP.sqr(xm), xm),
-                 torch.as_tensor(_B_MONT, device=xm.device))
+                 upload(_B_MONT, xm.device))
     y = FP.pow_bits(rhs, _SQRT_BITS)
     ok_curve = FP.eq(FP.sqr(y), rhs)
     flip = FP.gt_half(FP.from_mont(y)) != sign
     y = FP.select(flip, FP.neg(y), y)
-    one = torch.as_tensor(FP.one_mont, device=xm.device).expand_as(xm)
+    one = FP.const("one_mont", xm.device, I32).expand_as(xm)
     zero = torch.zeros_like(xm)
     X = FP.select(inf, zero, xm)
     Y = FP.select(inf, one, y)
@@ -156,11 +156,16 @@ def parse_compressed(byte_list):
 
 def decompress_batch(byte_list, device):
     """48-byte encodings -> ((X, Y, Z) (n, 24) on `device`, ok (n,) bool).
-    ok = on the curve and in G1 (or infinity)."""
+    ok = on the curve and in G1 (or infinity).  With
+    TPUKZG_CHECK_SUBGROUP=0 (trusted input) the subgroup check is skipped;
+    the range and on-curve checks still run.  No host sync: the result
+    stays on the device."""
     x_l, sign, inf = parse_compressed(byte_list)
-    x_t = torch.as_tensor(x_l, device=device)
-    sign_t = torch.as_tensor(sign, device=device)
-    inf_t = torch.as_tensor(inf, device=device)
+    x_t = upload(x_l, device)
+    sign_t = upload(sign, device)
+    inf_t = upload(inf, device)
     pts, ok_curve = _decompress_sqrt(x_t, sign_t, inf_t)
+    if not KzgConfig.from_env().check_subgroup:
+        return pts, ok_curve | inf_t
     sub = in_subgroup_fast(pts)
     return pts, (ok_curve & sub) | inf_t

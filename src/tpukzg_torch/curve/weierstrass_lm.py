@@ -2,9 +2,9 @@
 
 Counterpart of ``tpukzg/curve/weierstrass_lm.py`` (and of
 ``curve/weierstrass.py:_normalize, _scalar_mul``).  Coordinates are
-(L, *batch) int32 Montgomery limbs.  ``add`` goes through the ec_add
-kernel on the card (``kernels/ec.py``); over a plain field it is the
-tensor formula.
+(L, *batch) int32 Montgomery limbs.  ``add`` and ``double`` go through
+the ec_add and ec_double kernels on the card (``kernels/ec.py``); over a
+plain field they are the tensor formulas.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ class CurveLM:
 
     def inf(self, batch_shape, device):
         F = self.F
-        one = torch.as_tensor(F.one_np, device=device).reshape(
+        one = F.params.const("one_mont", device, torch.int32).reshape(
             (F.L,) + (1,) * len(batch_shape)).expand((F.L,) + tuple(batch_shape))
         zero = torch.zeros((F.L,) + tuple(batch_shape), dtype=torch.int32,
                            device=device)
@@ -42,15 +42,16 @@ class CurveLM:
 
     def double(self, p):
         """RCB15 Alg. 9 (a = 0)."""
-        F = self.F
-        X, Y, Z = p
-        t0, t1, t2, t3 = _bmul(F, [(Y, Y), (Y, Z), (Z, Z), (X, Y)])
-        z8 = F.mul_small(t0, 8)
-        t2 = F.mul_small(t2, self.b3_small)
-        t6 = F.sub(t0, F.mul_small(t2, 3))
-        y3t = F.add(t0, t2)
-        m0, m1, m2, m3 = _bmul(F, [(t2, z8), (t1, z8), (t6, y3t), (t6, t3)])
-        return (F.add(m3, m3), F.add(m2, m0), m1)
+        return self.double_n(p, 1)
+
+    def double_n(self, p, t: int):
+        """[2^t] P: a run of t doublings (one ec_double launch on the
+        card); t = 0 returns P."""
+        if t == 0:
+            return p
+        if self.F.params.plain:
+            return _ec.ec_double_plain(p, self.F, t)
+        return _ec.ec_double(p, t)
 
     def neg(self, p):
         X, Y, Z = p

@@ -69,6 +69,18 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def upload(arr, device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on `device`.  To a card it goes through
+    pinned memory by a non-blocking copy, so the host does not wait for
+    the device (a copy from pageable memory synchronizes the stream)."""
+    t = torch.as_tensor(np.require(arr, requirements=("C", "W")),
+                        dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 # ---------------------------------------------------------------------------
 # limb primitives (trailing limb axis, int64)
 # ---------------------------------------------------------------------------
@@ -193,8 +205,7 @@ class FieldParams:
         key = (name, str(device), dtype)
         t = self._consts.get(key)
         if t is None:
-            t = torch.as_tensor(np.asarray(getattr(self, name)),
-                                dtype=dtype, device=device)
+            t = upload(getattr(self, name), device, dtype)
             self._consts[key] = t
         return t
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpukzg_torch.field.mont import FP, P_MOD
+from tpukzg_torch.field.mont import FP, P_MOD, upload
 
 
 def _stack(parts, dim):
@@ -181,7 +181,7 @@ class Fp12Ops:
         k = (key, str(device))
         t = self._consts.get(k)
         if t is None:
-            t = torch.as_tensor(arr, dtype=torch.int32, device=device)
+            t = upload(arr, device, torch.int32)
             self._consts[k] = t
         return t
 
@@ -267,10 +267,11 @@ class Fp12Ops:
     def frobenius(self, a, n: int):
         assert n in (1, 2, 3)
         f2 = self.fp2
-        gam = self._const(("frob", n), self._frob[n], a.device)  # (6, 2, L)
-        # component (i, j) holds the w^(i + 2j) coefficient
+        # component (i, j) holds the w^(i + 2j) coefficient: the (6, 2, L)
+        # table reordered on the host, so no index list goes to the device
         order = [i + 2 * j for i in range(2) for j in range(3)]
-        g = gam[order].reshape(2, 3, 2, self.fp.L)
+        g = self._const(("frob", n), self._frob[n][order].reshape(
+            2, 3, 2, self.fp.L), a.device)
         d = f2.conj(a) if n % 2 == 1 else a
         return f2.mul(d, g)
 

@@ -19,6 +19,8 @@ import subprocess
 import threading
 import time
 
+from tpukzg_torch.utils import checked
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -59,6 +61,8 @@ def _digest(files) -> str:
 
 def build() -> str:
     """Compile (if not built yet) and return the path of the library."""
+    # the sources' CIOS products: 32-bit words, 64-bit accumulators
+    checked.cios_bound_certificate(32, 64)
     cu, hdr = _sources()
     out_dir = os.path.join(REPO, "build", _digest(cu + hdr))
     lib_path = os.path.join(out_dir, "libtpukzg_torch.so")

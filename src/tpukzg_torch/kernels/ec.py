@@ -1,15 +1,21 @@
-"""B2: complete projective G1 add (RCB15 Alg. 7, a = 0, b3 = 12).
+"""B2: complete projective G1 add (RCB15 Alg. 7, a = 0, b3 = 12), and
+B6: complete projective G1 double (RCB15 Alg. 9).
 
-Replaces the device function ``tpukzg/pallas/ec.py::ec_add`` (used
+B2 replaces the device function ``tpukzg/pallas/ec.py::ec_add`` (used
 inside the bucket-scan kernel).  Here it is the ``__device__`` function
 ``ec_add`` of ``csrc/ec.cuh``, shared by the bucket-scan kernel, plus a
 thin elementwise launcher (``csrc/ec.cu``) so every lane can be checked
 alone and so the curve code's adds on the card take one launch.
 
-The plain version is the same formula on tensors: 12 field products
-issued as two batched products of 6, and the add_mod / sub_mod /
-mul_small_mod steps of ``pallas/ec.py:22-68``.  Field results are
-canonical, so kernel and plain version agree bit for bit.
+B6 replaces ``tpukzg/pallas/ec.py::ec_double``: the ``__device__``
+function ``ec_double`` of ``csrc/ec.cuh`` and a launcher that doubles
+each point t times in a row in one launch (a Horner fold's run of c, a
+table window's, a run of the subgroup check's chain).
+
+The plain versions are the same formulas on tensors: 12 (8) field
+products issued as two batched products of 6 (4), and the add_mod /
+sub_mod / mul_small_mod steps of ``pallas/ec.py:22-68``.  Field results
+are canonical, so kernels and plain versions agree bit for bit.
 """
 
 from __future__ import annotations
@@ -52,29 +58,56 @@ def ec_add_plain(p, q, F):
     return (F.sub(m1, m0), F.add(m3, m2), F.add(m5, m4))
 
 
+def ec_double_plain(p, F, times: int = 1):
+    """RCB15 Alg. 9 (a = 0, b3 = 12) applied `times` times, limb-major
+    coords (L, *batch) over field ops F."""
+    for _ in range(times):
+        X, Y, Z = p
+        t0, t1, t2, t3 = _bmul(F, [(Y, Y), (Y, Z), (Z, Z), (X, Y)])
+        z8 = F.mul_small(t0, 8)
+        t2 = F.mul_small(t2, 12)
+        t6 = F.sub(t0, F.mul_small(t2, 3))
+        y3t = F.add(t0, t2)
+        m0, m1, m2, m3 = _bmul(F, [(t2, z8), (t1, z8), (t6, y3t),
+                                   (t6, t3)])
+        p = (F.add(m3, m3), F.add(m2, m0), m1)
+    return p
+
+
+def _device_of(name, coords):
+    devs = {c.device for c in coords}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _limb_major(name, coords):
+    """Contiguous int32 (24, *batch) copies, their shape and lane count;
+    raises on another limb axis."""
+    shape = coords[0].shape
+    if shape[0] != 24:
+        raise ValueError(f"{name}: limb axis of {tuple(shape)} is not 24")
+    return ([c.to(I32).contiguous() for c in coords], shape,
+            coords[0].numel() // 24)
+
+
 _fn = None
+_fn_double = None
 
 
 def ec_add(p, q):
     """p + q on limb-major (X, Y, Z) coords of (24, *batch); the batch
     axes broadcast.  CPU tensors -> plain version; CUDA tensors -> the
     elementwise kernel."""
-    coords = list(p) + list(q)
-    devs = {c.device for c in coords}
-    if len(devs) != 1:
-        raise ValueError(f"ec_add: tensors on several devices {devs}")
-    dev = devs.pop()
-    coords = torch.broadcast_tensors(*coords)
+    dev = _device_of("ec_add", list(p) + list(q))
+    coords = torch.broadcast_tensors(*p, *q)
     if dev.type == "cpu":
         return ec_add_plain(tuple(coords[:3]), tuple(coords[3:]), FP_LM_PLAIN)
-    if dev.type != "cuda":
-        raise ValueError(f"ec_add: unsupported device {dev}")
-    shape = coords[0].shape
-    if shape[0] != 24:
-        raise ValueError(f"ec_add: limb axis of {tuple(shape)} is not 24")
-    coords = [c.to(I32).contiguous() for c in coords]
+    coords, shape, n = _limb_major("ec_add", coords)
     out = [torch.empty(shape, dtype=I32, device=dev) for _ in range(3)]
-    n = coords[0].numel() // 24
     if n == 0:
         return tuple(out)
     es, ls = 1, n                                  # element i, limb j: i + j n
@@ -85,4 +118,31 @@ def ec_add(p, q):
               n, es, ls, _build.stream_ptr(dev))
     _build.check(err, "tpukzg_ec_add")
     _build.launches["ec_add"] += 1
+    return tuple(out)
+
+
+def ec_double(p, times: int = 1):
+    """[2^times] P on limb-major (X, Y, Z) coords of (24, *batch); the
+    batch axes broadcast.  CPU tensors -> plain version; CUDA tensors ->
+    the kernel, one launch for the whole run of doublings."""
+    if times < 0:
+        raise ValueError(f"ec_double: times={times} < 0")
+    dev = _device_of("ec_double", p)
+    coords = torch.broadcast_tensors(*p)
+    if dev.type == "cpu":
+        return ec_double_plain(tuple(coords), FP_LM_PLAIN, times)
+    coords, shape, n = _limb_major("ec_double", coords)
+    if times == 0:
+        return tuple(coords)
+    out = [torch.empty(shape, dtype=I32, device=dev) for _ in range(3)]
+    if n == 0:
+        return tuple(out)
+    global _fn_double
+    if _fn_double is None:
+        _fn_double = _build.fn("tpukzg_ec_double", "pppppplllip")
+    err = _fn_double(*[o.data_ptr() for o in out],
+                     *[c.data_ptr() for c in coords], n, 1, n, times,
+                     _build.stream_ptr(dev))
+    _build.check(err, "tpukzg_ec_double")
+    _build.launches["ec_double"] += 1
     return tuple(out)

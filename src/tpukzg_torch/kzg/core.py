@@ -26,7 +26,7 @@ import torch
 
 from tpukzg_torch.curve import g1 as g1m
 from tpukzg_torch.curve.weierstrass_lm import G1_LM
-from tpukzg_torch.field.mont import FP, FR
+from tpukzg_torch.field.mont import FP, FR, upload
 from tpukzg_torch.kzg.setup import Setup
 from tpukzg_torch.msm.pippenger_lm import (build_fixed_table, default_window,
                                            msm_fixed, msm_grouped)
@@ -114,7 +114,7 @@ class Kzg:
             return c.movedim(-1, 0).reshape(
                 (24,) + (1,) * (len(batch) + 1 - c.dim()) + c.shape[:-1])
 
-        gen = [torch.as_tensor(g, device=self.device).reshape(
+        gen = [upload(g, self.device).reshape(
             (24,) + (1,) * len(batch)) for g in g1m.GEN_NP]
         bases = tuple(torch.stack(torch.broadcast_tensors(g, lm(c)), 1)
                       for g, c in zip(gen, proof_point))     # (24, 2, ...)
@@ -138,8 +138,7 @@ class Kzg:
         rz = FR.from_mont(FR.mul(rho_m, FR.to_mont(z_can)))
         ry_sum = FR.sum_along(FR.mul(rho_m, FR.to_mont(y_can)), axis=0)
         neg_ys = FR.from_mont(FR.neg(ry_sum))[None]
-        gen = [torch.as_tensor(c, device=self.device)[None]
-               for c in g1m.GEN_NP]
+        gen = [upload(c, self.device)[None] for c in g1m.GEN_NP]
         pts = tuple(torch.cat([pi, pi, c, g], 0)
                     for pi, c, g in zip(proof_points, c_points, gen))
         scalars = torch.cat([rho_can, rz, rho_can, neg_ys], 0)

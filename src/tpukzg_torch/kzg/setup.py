@@ -7,7 +7,7 @@ points ((n, 24) int32 Montgomery coords), the two G2 points [1]_2 and
 
 Three ways to make one:
 - `load` / `from_numpy`: a layout-v2 npz (the JAX package's format;
-  `save` writes it);
+  `save` writes it), or a layout-v1 one, whose lines are computed;
 - `generate_insecure(tau, n)`: the cached dev SRS of (tau, n), made on
   a cache miss by ONE batched G1 ladder over the 2n scalars, a G2
   ladder and the lines — INSECURE, tau is known;
@@ -103,16 +103,14 @@ class Setup:
     def from_numpy(cls, arrays: dict, device=None):
         """Build from the JAX package's setup arrays (uint32 numpy):
         lag_i / mono_i (n, 24), g2g_i / g2t_i (2, 24), lng_i / lnt_i
-        (63, 3, 2, 24)."""
+        (63, 3, 2, 24); a layout-v1 file has no lines."""
         n = int(np.asarray(arrays["lag_0"]).shape[0])
         pts = {name: tuple(arrays[f"{name}_{i}"] for i in range(3))
                for name in ("lag", "mono", "g2g", "g2t")}
-        lines = {}
-        for name in ("lng", "lnt"):
-            if f"{name}_0" not in arrays:
-                raise ValueError("SRS file has no Miller lines (layout v1): "
-                                 "regenerate it")
-            lines[name] = tuple(arrays[f"{name}_{i}"] for i in range(2))
+        # layout v1 has no lines: __init__ computes them
+        lines = {name: tuple(arrays[f"{name}_{i}"] for i in range(2))
+                 if f"{name}_0" in arrays else None
+                 for name in ("lng", "lnt")}
         return cls(n, pts["lag"], pts["mono"], pts["g2g"], pts["g2t"],
                    lines["lng"], lines["lnt"], device=device)
 

@@ -17,7 +17,9 @@ import numpy as np
 import torch
 
 from tpukzg_torch.curve.weierstrass_lm import G1_LM, CurveLM
+from tpukzg_torch.field.mont import upload
 from tpukzg_torch.kernels import bucket
+from tpukzg_torch.utils.config import MsmConfig
 
 
 def default_window(n: int) -> int:
@@ -31,8 +33,8 @@ def _digits(scalars, c: int):
     """(..., 16) canonical 16-bit limbs -> (W, ...) int32 window digits."""
     W = -(-256 // c)
     starts = np.arange(W) * c
-    limb_idx = torch.as_tensor(starts // 16, device=scalars.device)
-    sh = torch.as_tensor(starts % 16, device=scalars.device)
+    limb_idx = upload(starts // 16, scalars.device)
+    sh = upload(starts % 16, scalars.device)
     padded = torch.nn.functional.pad(scalars.to(torch.int64), (0, 2))
     lo = padded[..., limb_idx]
     hi = padded[..., limb_idx + 1]
@@ -63,6 +65,11 @@ def _window_sums(curve, buckets):
 
 
 def _chunk(n: int, rows: int, budget: int = 1 << 28) -> int:
+    """Rows of n sorted digits a bucket-scan chunk takes: MsmConfig's
+    window_chunk, else as many as `budget` bytes hold."""
+    fixed = MsmConfig.from_env().window_chunk
+    if fixed is not None:
+        return min(fixed, rows)
     per_row = n * 3 * 24 * 4 * 3
     return max(1, min(rows, budget // max(per_row, 1)))
 
@@ -105,22 +112,20 @@ def msm_grouped(points, scalars, groups, c: int, curve: CurveLM = G1_LM):
                  for i in range(3))                          # (L, W, G)
     acc = curve.inf((G,), dev)
     for i in range(W):
-        for _ in range(c if i else 0):     # doubling infinity returns it
-            acc = curve.double(acc)
+        acc = curve.double_n(acc, c if i else 0)   # one launch a run
         acc = curve.add(acc, tuple(c_[:, W - 1 - i] for c_ in wres))
     return [tuple(c_[:, i] for c_ in acc) for i in range(G)]
 
 
 def build_fixed_table(points, c: int, curve: CurveLM = G1_LM):
     """points (X, Y, Z) of (n, 24) -> coords (24, W, n) with
-    table[:, w] = [2^(c w)] P_i: W - 1 runs of c doublings, built once
-    per SRS basis (28.3 MB at n = 4096, c = 11)."""
+    table[:, w] = [2^(c w)] P_i: W - 1 runs of c doublings (one launch
+    each), built once per SRS basis (28.3 MB at n = 4096, c = 11)."""
     W = -(-256 // c)
     cur = tuple(p.movedim(-1, 0).contiguous() for p in points)   # (24, n)
     tabs = [cur]
     for _ in range(W - 1):
-        for _ in range(c):
-            cur = curve.double(cur)
+        cur = curve.double_n(cur, c)
         tabs.append(cur)
     return tuple(torch.stack([t[i] for t in tabs], 1) for i in range(3))
 
@@ -156,7 +161,8 @@ POINT_CHUNK = 1 << 17
 def msm(points, scalars, c: int | None = None,
         point_chunk: int = POINT_CHUNK, curve: CurveLM = G1_LM):
     """sum_i [k_i] P_i: points (X, Y, Z) of (n, 24); scalars (n, 16)
-    canonical -> (X, Y, Z) of (24,).  c defaults to the window of n.  The
+    canonical -> (X, Y, Z) of (24,).  c defaults to MsmConfig's window,
+    else the window of n.  The
     list is padded with zero scalars (digit 0: no bucket picks a pad) to
     whole chunks of `point_chunk` points; the chunks are the groups of
     one grouped MSM (rows of at most `point_chunk` lanes, one Horner fold
@@ -167,7 +173,7 @@ def msm(points, scalars, c: int | None = None,
     if n == 0:
         return curve.inf((), scalars.device)
     if c is None:
-        c = default_window(n)
+        c = MsmConfig.from_env().window or default_window(n)
     m = min(n, point_chunk)
     npad = -(-n // m) * m
     points = tuple(torch.nn.functional.pad(p, (0, 0, 0, npad - n))

@@ -34,10 +34,10 @@ def barycentric_eval(plan, evals, z, roots=None):
     """p(z) for evaluation-form p: evals (k, n, 16) Montgomery natural
     order, z (k, 16) Montgomery -> (k, 16) Montgomery."""
     if roots is None:
-        roots = torch.as_tensor(plan.roots, device=evals.device)
+        roots = plan.on(evals.device, "roots")
     a, b = fractree.fractree_partials(evals, z, roots)
     num = _fraction_merge(a, b)
-    return FR.mul(num, torch.as_tensor(plan.n_inv, device=evals.device))
+    return FR.mul(num, plan.on(evals.device, "n_inv"))
 
 
 def eval_form_quotient(plan, evals, z, y, roots=None, F=FR):

@@ -82,10 +82,13 @@ for name in ("jax", "jaxlib", "tpukzg", "golden"):
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import tpukzg_torch as tt
+from tpukzg_torch.utils import checked, config, obs
 z = np.load(sys.argv[2])
 ts = tt.generate_insecure_setup(0xDEADBEEF, 16, device="cpu")
-ok = tt.verify_blob_kzg_proof_batch([z["blob"].tobytes()],
-                                    [z["c"].tobytes()], [z["p"].tobytes()], ts)
+pend = tt.verify_blob_kzg_proof_batch_pipeline(
+    [z["blob"].tobytes()], [z["c"].tobytes()], [z["p"].tobytes()], ts)
+pend.stage2()
+ok = pend.result()
 same = tt.blob_to_kzg_commitment(z["blob"].tobytes(), ts) == z["c"].tobytes()
 mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpukzg")
         and sys.modules[m] is not None]

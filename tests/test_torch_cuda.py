@@ -413,3 +413,101 @@ def test_verify_kzg_proof_on_card(cuda):
                                pf, ts) is True
     assert tt.verify_kzg_proof(c, z.to_bytes(32, "big"),
                                (y + 1).to_bytes(32, "big"), pf, ts) is False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("times", [1, 3, 11, 32])
+def test_ec_double_kernel_on_card(cuda, times):
+    """B6: a run of `times` doublings in one launch equals the plain
+    version bit for bit, infinity in lanes 0 and 7."""
+    from tpukzg_torch.kernels import _build
+    pts = [torch.from_numpy(c.copy()).to(cuda) for c in srs_points()]
+    inf = G1_LM_PLAIN.inf((1,), cuda)
+    for c in range(3):
+        pts[c][:, 0] = pts[c][:, 7] = inf[c][:, 0]
+    before = _build.launches["ec_double"]
+    got = ec.ec_double(tuple(pts), times)
+    assert _build.launches["ec_double"] - before == 1
+    want = ec.ec_double_plain(tuple(pts), FP_LM_PLAIN, times)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool(G1_LM_PLAIN.is_inf(tuple(c[:, [0, 7]] for c in got)).all())
+
+
+@pytest.mark.cuda
+def test_ec_double_kernel_many_blocks_on_card(cuda):
+    """1000 lanes (8 blocks of 128, the last ragged) with a broadcast
+    batch axis, t = 2, against the plain version."""
+    pool = tuple(torch.from_numpy(c).to(cuda) for c in srs_points())
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    idx = torch.randint(0, pool[0].shape[1], (2, 500), generator=gen,
+                        device=cuda)
+    p = tuple(c[:, idx] for c in pool)
+    got = ec.ec_double(p, 2)
+    assert got[0].shape == (24, 2, 500)
+    want = ec.ec_double_plain(p, FP_LM_PLAIN, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _card_triples(ts, k, seed):
+    import random
+    import tpukzg_torch as tt
+    rng = random.Random(seed)
+    blobs = [b"".join(rng.randrange(FR.modulus).to_bytes(32, "big")
+                      for _ in range(ts.n)) for _ in range(k)]
+    cs = tt.blob_to_kzg_commitment_batch(blobs, ts)
+    return blobs, cs, tt.compute_blob_kzg_proof_batch(blobs, cs, ts)
+
+
+@pytest.mark.cuda
+def test_pipeline_schedule_on_card(cuda):
+    """n = 16: bench.py's pipelined schedule over every kind of batch
+    gives the synchronous path's verdicts, which are the expected ones
+    (the CPU tests hold them against the golden model)."""
+    import tpukzg_torch as tt
+    from torch_cases import BATCH_CASES, batch_case
+    ts = tt.generate_insecure_setup(0xDEADBEEF, 16, device=cuda)
+    triples = _card_triples(ts, 3, 8)
+    batches = [batch_case(c, triples, 16) for c in BATCH_CASES]
+    pend = [tt.verify_blob_kzg_proof_batch_pipeline(*batches[0], ts)]
+    got = []
+    for i in range(len(batches)):
+        if i + 1 < len(batches):
+            pend.append(tt.verify_blob_kzg_proof_batch_pipeline(
+                *batches[i + 1], ts))
+        pend[i].stage2()
+        if i > 0:
+            got.append(pend[i - 1].result())
+    got.append(pend[-1].result())
+    sync = [tt.verify_blob_kzg_proof_batch(*b, ts) for b in batches]
+    assert got == sync == [c in ("valid", "empty") for c in BATCH_CASES]
+    assert tt.verify_blob_kzg_proof_batch_chunked(*triples, ts, chunk=2)
+
+
+@pytest.mark.cuda
+def test_pipeline_stages_do_not_sync_on_card(cuda, monkeypatch):
+    """Stage 1 and stage 2 of a batch run under sync debug mode "error",
+    apart from the y readback (the one sync the JAX package has too)."""
+    import tpukzg_torch as tt
+    from tpukzg_torch.kzg import blob
+    ts = tt.generate_insecure_setup(0xDEADBEEF, 16, device=cuda)
+    triples = _card_triples(ts, 3, 9)
+    assert tt.verify_blob_kzg_proof_batch(*triples, ts)    # warm caches
+    real = blob._y_to_host
+
+    def exempt(y):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(y)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    monkeypatch.setattr(blob, "_y_to_host", exempt)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pend = tt.verify_blob_kzg_proof_batch_pipeline(*triples, ts)
+        pend.stage2()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pend.result() is True

@@ -17,7 +17,8 @@ from tpukzg_torch.field.limb_major import FP_LM_PLAIN
 from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
 from tpukzg_torch.kernels import bucket, ec, montmul
 
-from torch_cases import chunk_scan_inputs, ec_inputs, operands, scan_inputs
+from torch_cases import (chunk_scan_inputs, ec_inputs, operands,
+                         scan_inputs, srs_points)
 
 # Tiny tensors: one intra-op thread keeps parallel test workers from
 # oversubscribing the cores.
@@ -57,6 +58,64 @@ def test_ec_add_plain_vs_pallas_ec():
         assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int32))
     assert bool(G1_LM_PLAIN.is_inf(tuple(c[:, 1:2] for c in got)).all())
     assert all(torch.equal(a, b) for a, b in zip(ec.ec_add(tp, tq), got))
+
+
+def _double_inputs():
+    """32 SRS points with infinity in lanes 0 and 7."""
+    pts = [c.copy() for c in srs_points()]
+    inf = (np.zeros(24, np.int32), FP.one_mont, np.zeros(24, np.int32))
+    for c in range(3):
+        pts[c][:, 0] = pts[c][:, 7] = inf[c]
+    return tuple(pts)
+
+
+def test_ec_double_plain_vs_pallas_ec():
+    import jax.numpy as jnp
+    from tpukzg.pallas.ec import ec_double as jec_double
+    p = _double_inputs()
+    mu = jnp.asarray(np.asarray(JFP.mu_limbs, np.uint32)[:, None])
+    pm = jnp.asarray(np.asarray(JFP.mod_limbs, np.uint32)[:, None])
+    # eager jnp, as the kernel body runs in interpret mode
+    ref = jec_double(tuple(jnp.asarray(c.astype(np.uint32)) for c in p),
+                     mu, pm, 24)
+    tp = tuple(torch.from_numpy(c) for c in p)
+    got = ec.ec_double_plain(tp, FP_LM_PLAIN)
+    for g, r in zip(got, ref):
+        assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int32))
+    assert bool(G1_LM_PLAIN.is_inf(tuple(c[:, [0, 7]] for c in got)).all())
+    assert not bool(G1_LM_PLAIN.is_inf(tuple(c[:, 1:7] for c in got)).any())
+    # the dispatching wrapper takes the plain version for CPU tensors
+    assert all(torch.equal(a, b) for a, b in zip(ec.ec_double(tp), got))
+
+
+def test_ec_double_run_equals_single_doubles():
+    """A run of t doublings (one launch on the card) equals t single
+    doubles, and the curve's double_n and the ladder's double agree."""
+    tp = tuple(torch.from_numpy(c[:, :8]) for c in _double_inputs())
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM
+    one = tp
+    for t in range(1, 6):
+        one = ec.ec_double_plain(one, FP_LM_PLAIN)
+        for got in (ec.ec_double_plain(tp, FP_LM_PLAIN, t),
+                    ec.ec_double(tp, t), G1_LM.double_n(tp, t),
+                    G1_LM_PLAIN.double_n(tp, t)):
+            assert all(torch.equal(a, b) for a, b in zip(got, one))
+    assert all(torch.equal(a, b) for a, b in zip(ec.ec_double(tp, 0), tp))
+    assert all(torch.equal(a, b) for a, b in zip(G1_LM.double(tp),
+                                                 ec.ec_double(tp)))
+    # [2^t] P is the double-and-add of 2^t
+    k = torch.from_numpy(FR.from_int([1 << 5] * 8))
+    ladder = G1_LM_PLAIN.scalar_mul(tp, k)
+    assert bool(G1_LM_PLAIN.eq(ladder, one).all())
+
+
+def test_ec_double_refuses_other_devices():
+    a = torch.zeros((24, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ec.ec_double((a, a, a), 2)
+    with pytest.raises(ValueError):
+        ec.ec_double(tuple(torch.zeros((24, 4), dtype=torch.int32)
+                           for _ in range(3)), -1)
 
 
 def test_seg_scan_plain_vs_loop_scan():

@@ -92,3 +92,74 @@ def long_row_scan_inputs(g, n, seed):
     SRS points under sorted keys with ~48 lanes a key, so segments span
     tile edges."""
     return scan_inputs(g, n, seed, nkeys=max(1, n // 48))
+
+
+def golden_triples(n, count, seed):
+    """`count` random blobs of n elements with their commitments and
+    proofs by the golden model (imported here: the card tests load this
+    module without it) -> (blobs, commitments, proofs) as bytes."""
+    import golden.model as gold
+    gs = gold.GoldenSetup(0xDEADBEEF, n)
+    rng = random.Random(seed)
+    blobs = [b"".join(rng.randrange(gold.R).to_bytes(32, "big")
+                      for _ in range(n)) for _ in range(count)]
+    cs = [gold.g1_compress(gold.blob_to_kzg_commitment(
+        gs, gold.blob_from_bytes(b))) for b in blobs]
+    pfs = [gold.g1_compress(gold.compute_blob_kzg_proof(
+        gs, gold.blob_from_bytes(b), c)[0]) for b, c in zip(blobs, cs)]
+    return blobs, cs, pfs
+
+
+def golden_verdict(n, blobs, cs, pfs) -> bool:
+    """golden.verify_blob_kzg_proof_batch, False where it refuses an
+    input while decoding (ValueError) and for a blob of the wrong length
+    (which it asserts against)."""
+    import golden.model as gold
+    if any(len(b) != 32 * n for b in blobs):
+        return False
+    gs = gold.GoldenSetup(0xDEADBEEF, n)
+    try:
+        return gold.verify_blob_kzg_proof_batch(
+            gs, [gold.blob_from_bytes(b) for b in blobs], cs, pfs)
+    except ValueError:
+        return False
+
+
+def off_curve_encoding() -> bytes:
+    """A well-formed 48-byte G1 encoding whose x has x^3 + 4 no square:
+    no point of the curve has it."""
+    p, x = FP.modulus, 3
+    while pow((x ** 3 + 4) % p, (p - 1) // 2, p) == 1:
+        x += 1
+    return bytes([x.to_bytes(48, "big")[0] | 0x80]) + x.to_bytes(48, "big")[1:]
+
+
+BATCH_CASES = ("valid", "tampered", "swapped", "element_ge_r", "off_curve",
+               "malformed", "wrong_length", "empty")
+
+
+def batch_case(case, triples, n):
+    """The batch of `triples` (three blobs) for one verdict case:
+    tampered — a flipped bit of proof 1 (on the curve, outside G1);
+    swapped — proofs 0 and 1 exchanged (refused by the pairing);
+    element_ge_r — blob 1 all 0xFF; off_curve — commitment 1 has no
+    point; malformed — commitment 1 without the compression flag;
+    wrong_length — blob 1 one element short; empty — no blobs."""
+    blobs, cs, pfs = (list(x) for x in triples)
+    if case == "tampered":
+        bad = bytearray(pfs[1])
+        bad[13] ^= 4
+        pfs[1] = bytes(bad)
+    elif case == "swapped":
+        pfs[0], pfs[1] = pfs[1], pfs[0]
+    elif case == "element_ge_r":
+        blobs[1] = b"\xff" * (32 * n)
+    elif case == "off_curve":
+        cs[1] = off_curve_encoding()
+    elif case == "malformed":
+        cs[1] = b"\x00" * 48
+    elif case == "wrong_length":
+        blobs[1] = blobs[1][:-32]
+    elif case == "empty":
+        blobs, cs, pfs = [], [], []
+    return blobs, cs, pfs

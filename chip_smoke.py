@@ -12,14 +12,20 @@ Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit) and torch's CUDA version;
   2. the kernels built from csrc/ (nvcc), with the build seconds, and
      each source's kernels with their registers and spill (ptxas);
-     B2, B3, B4 and B5 must spill nothing;
+     B1 (the product and the chain launch), B2, B3, B4, B5 and both B6
+     kernels must spill nothing;
   3. B1 montmul (Fp, Fr; 2^20 lanes), B2 ec_add (2^16 lanes) and B6
-     ec_double (2^16 lanes, one doubling) against their plain tensor
-     versions, bit for bit;
+     ec_double (2^16 lanes, one doubling; both kernels, one thread a
+     point and four) against their plain tensor versions, bit for bit;
+     B1 beside an elementwise PyTorch op with its loads and stores (the
+     floor of its access pattern); both B6 kernels timed at 4096 to 131072 lanes (the launcher's
+     crossover);
   4. the main path: verify_blob_kzg_proof_batch on the n=4096 SRS and the
      bench fixtures — a k=8 warm-up, k=256 (True, launch counts taken
      around this run alone), k=256 with one tampered proof byte (False)
      and k=256 with two proofs swapped (False, decided by the pairing);
+     B1's launches on the valid run (the product's and the chain
+     launch's) must be those of B1_LAUNCHES;
      then the async entry on the valid batch (True; resolved at once it
      is the sync path, timed); bench.py's pipelined schedule over four
      k=256 batches (valid, tampered, swapped, valid: True, False, False,
@@ -29,15 +35,19 @@ Phases, each printed on its own line:
      False with one blob of the third chunk tampered); then one more
      k=256 verify with its tensor ops counted, and one under
      torch.profiler for the device's busy share;
-  5. B6 ec_double against its plain version on the runs the k=256 verify
-     gave it (the fold's 2 lanes x 8, the subgroup check's 512 lanes x
-     32), then B3 bucket scan and B4 fraction tree on the very inputs
-     the k=256 run gave them (one z moved in-domain); B3 launched twice
-     must give the same limbs;
+  5. B6 ec_double (both kernels) against its plain version on the runs
+     the k=256 verify gave it (the fold's 2 lanes x 8, the subgroup
+     check's 512 lanes x 32); B1's chain launch against the plain chain
+     on the verify's three chains (the decompress square root on 512
+     lanes, the pairing's and the final exponentiation's Fp
+     inversions); then B3 bucket scan and B4 fraction tree on the very
+     inputs the k=256 run gave them (one z moved in-domain); B3 launched
+     twice must give the same limbs;
   6. the prover path on the 16 fixture blobs (launch counts taken around
-     each step alone): the fixed-base tables (B6 held against its plain
-     version on one window's run of 4096 lanes x 11),
-     blob_to_kzg_commitment_batch and
+     each step alone, B1's checked against B1_LAUNCHES): the fixed-base
+     tables (B6 held against its plain version on one window's run of
+     4096 lanes x 11), the chain launch on the proof batch's two Fr
+     inversions, blob_to_kzg_commitment_batch and
      compute_blob_kzg_proof_batch byte-equal to the fixture, accepted by
      verify_blob_kzg_proof_batch, and one more commit batch under
      torch.profiler for the device's busy share; interpolate (iNTT,
@@ -66,7 +76,10 @@ Phases, each printed on its own line:
      over 2^20 points (8 chunks of 2^17) equal to [sum k_i d_i] G1, and
      B3 on one row of a chunk against its plain version; B6's launches on
      every path;
-  9. one JSON line of kernel numbers, then the result line.
+  9. one JSON line of kernel numbers, then the result line.  For every
+     kernel `ms` is its time on the card (CUDA-graph replays, no host
+     time: graph_ms) and `call_ms` the time around one Python call of
+     its wrapper (CUDA events: cuda_ms), at the same inputs.
 Any failure exits non-zero before the result line.  The script never
 falls back to the CPU and imports neither JAX nor the JAX package.
 """
@@ -323,13 +336,20 @@ def check_montmul(torch, field, lanes: int, gen, reps: int):
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max().item())
     check(err == 0, f"montmul {field.name}: kernel != plain (max err {err})")
-    ms = cuda_ms(torch, lambda: mm.montmul(a, b, field, limb_dim=0), reps)
+    ms = graph_ms(torch, lambda: mm.montmul(a, b, field, limb_dim=0), reps)
+    call_ms = cuda_ms(torch, lambda: mm.montmul(a, b, field, limb_dim=0),
+                      reps)
     pms = cuda_ms(torch, lambda: mm.montmul_plain(a, b, plain_field,
                                                  limb_dim=0), 1)
+    # the floor of B1's access pattern: a PyTorch elementwise op with the
+    # same loads and stores (a and b read, an (L, lanes) int32 written)
+    c = torch.empty_like(a)
+    floor_ms = graph_ms(torch, lambda: torch.bitwise_xor(a, b, out=c), reps)
     words = L // 2
     bms, by = bound_ms(3 * lanes * L * 4, lanes * montmul_ops(words))
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, shape=[L, lanes],
+    return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=pms,
+                floor_ms=floor_ms, bound_ms=bms, bound_by=by,
+                shape=[L, lanes],
                 check=f"bit-exact on {lanes} lanes incl. all-0xFFFF, p-1, 0")
 
 
@@ -376,11 +396,12 @@ def hold_ec_add(torch, p, q, reps: int):
     lanes = p[0].numel() // 24
     check(err == 0, f"ec_add on {lanes} lanes: kernel != plain (max limb "
           f"err {err})")
-    ms = cuda_ms(torch, lambda: ec.ec_add(p, q), reps)
+    ms = graph_ms(torch, lambda: ec.ec_add(p, q), reps)
+    call_ms = cuda_ms(torch, lambda: ec.ec_add(p, q), reps)
     pms = cuda_ms(torch, lambda: ec.ec_add_plain(p, q, FP_LM_PLAIN), 1)
     bms, by = bound_ms(9 * lanes * 24 * 4, lanes * EC_ADD_OPS)
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, shape=list(p[0].shape), out=got)
+    return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, shape=list(p[0].shape), out=got)
 
 
 def capture_ec_add(torch, fn, lanes: int, nth: int):
@@ -409,25 +430,67 @@ def capture_ec_add(torch, fn, lanes: int, nth: int):
 
 def hold_ec_double(torch, p, times: int, reps: int):
     """B6 (a run of `times` doublings, one launch) against its plain
-    version on p, and both timed -> the kernel entry's numbers."""
+    version on p, both kernels (one thread a point, and four) and the
+    launcher's choice between them, each timed -> the launcher's numbers,
+    with each kernel's ms and the group the launcher took."""
     from tpukzg_torch.field.limb_major import FP_LM_PLAIN
     from tpukzg_torch.kernels import ec
     p = tuple(c.contiguous() for c in torch.broadcast_tensors(*p))
-    got = ec.ec_double(p, times)
     want = ec.ec_double_plain(p, FP_LM_PLAIN, times)
-    torch.cuda.synchronize()
-    err = max(int((g.long() - w.long()).abs().max().item())
-              for g, w in zip(got, want))
     lanes = p[0].numel() // 24
-    check(err == 0, f"ec_double x{times} on {lanes} lanes: kernel != plain "
-          f"(max limb err {err})")
-    ms = cuda_ms(torch, lambda: ec.ec_double(p, times), reps)
+    err, ms_by, call_by = 0, {}, {}
+    for group in (1, 4):
+        got = ec.ec_double(p, times, group)
+        torch.cuda.synchronize()
+        e = max(int((g.long() - w.long()).abs().max().item())
+                for g, w in zip(got, want))
+        check(e == 0, f"ec_double x{times} on {lanes} lanes, {group} "
+              f"threads a point: kernel != plain (max limb err {e})")
+        err = max(err, e)
+        ms_by[group] = graph_ms(torch, lambda: ec.ec_double(p, times, group),
+                                reps)
+        call_by[group] = cuda_ms(torch, lambda: ec.ec_double(p, times, group),
+                                 reps)
+    group = ec.double_group(lanes)
     pms = cuda_ms(torch, lambda: ec.ec_double_plain(p, FP_LM_PLAIN, times),
                   1)
     # each point read once and written once; t doublings of 8 products
     bms, by = bound_ms(6 * lanes * 24 * 4, lanes * times * EC_DOUBLE_OPS)
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, shape=list(p[0].shape), times=times)
+    return dict(max_abs_err=err, ms=ms_by[group], call_ms=call_by[group],
+                plain_ms=pms, bound_ms=bms, bound_by=by,
+                shape=list(p[0].shape), times=times, group=group,
+                ms_one_thread=ms_by[1], call_ms_one_thread=call_by[1],
+                ms_quad=ms_by[4], call_ms_quad=call_by[4], chain=8 * times,
+                chain_quad=2 * times)
+
+
+def say_double(r, name, card):
+    say(f"[B6 ec_double {r['shape']} x{r['times']}, {name}] ok, both kernels "
+        f"bit-exact vs plain: {r['ms']:.4f} ms on the card, "
+        f"{r['call_ms']:.4f} ms a call, by the launcher's choice ("
+        f"{r['group']} threads a point); one thread a point "
+        f"{r['ms_one_thread']:.4f} / {r['call_ms_one_thread']:.4f} ms, a "
+        f"chain of {r['chain']} products; four {r['ms_quad']:.4f} / "
+        f"{r['call_ms_quad']:.4f} ms, a chain of {r['chain_quad']} (plain "
+        f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.6f} ms by "
+        f"{r['bound_by']}) [{card}]")
+
+
+def double_crossover(torch, pool, gen, reps: int):
+    """Both B6 kernels timed on the card (graph_ms) at lane counts around
+    the launcher's switch (t = 1 and t = 11), on random SRS points ->
+    {"lanes x t": {"1": ms, "4": ms}} (the evidence for QUAD_MAX_LANES)."""
+    from tpukzg_torch.kernels import ec
+    out = {}
+    for lanes in (4096, 8192, 16384, 32768, 65536, 131072):
+        idx = torch.randint(0, pool[0].shape[1], (lanes,), generator=gen,
+                            device="cuda")
+        p = tuple(c[:, idx].contiguous() for c in pool)
+        for times in (1, 11):
+            out[f"{lanes}x{times}"] = {str(g): round(graph_ms(
+                torch, lambda: ec.ec_double(p, times, g), reps), 5)
+                for g in (1, 4)}
+    return out
 
 
 def check_ec_double(torch, pool, lanes: int, gen, reps: int):
@@ -458,13 +521,13 @@ class DoubleRuns:
         from tpukzg_torch.kernels import ec
         self.orig = orig = ec.ec_double
 
-        def rec(p, times=1):
+        def rec(p, times=1, group=None):
             lanes = self.torch.broadcast_shapes(
                 *(c.shape for c in p))[1:].numel()
             key = (lanes, times)
             if key in self.wanted and key not in self.got:
                 self.got[key] = (tuple(c.clone() for c in p), times)
-            return orig(p, times)
+            return orig(p, times, group)
 
         ec.ec_double = rec
         return self
@@ -473,6 +536,97 @@ class DoubleRuns:
         from tpukzg_torch.kernels import ec
         ec.ec_double = self.orig
         return False
+
+
+class PowRuns:
+    """Keeps the input of each call of B1's chain launch while active:
+    `with PowRuns(torch) as cap: ...`, then cap.got = [(x, e, field),
+    ...] in call order."""
+
+    def __init__(self, torch):
+        self.torch, self.got = torch, []
+
+    def __enter__(self):
+        from tpukzg_torch.kernels import montmul
+        self.orig = orig = montmul.montmul_pow
+
+        def rec(a, e, field):
+            self.got.append((a.clone(), e, field))
+            return orig(a, e, field)
+
+        montmul.montmul_pow = rec
+        return self
+
+    def __exit__(self, *exc):
+        from tpukzg_torch.kernels import montmul
+        montmul.montmul_pow = self.orig
+        return False
+
+
+def hold_pow(torch, x, e: int, field, reps: int):
+    """B1's chain launch (a^e, one launch) against the plain chain (the
+    same products one by one) on x, both timed.  Bound: the elements
+    read and written once, and every product of the chain; the chain of
+    dependent products (its length) is what sets the time."""
+    from tpukzg_torch.field.mont import FP_PLAIN, FR_PLAIN
+    from tpukzg_torch.kernels import montmul as mm
+    plain_field = FP_PLAIN if field.name == "Fp" else FR_PLAIN
+    got = mm.montmul_pow(x, e, field)
+    want, pms = timed_once(torch, lambda: mm.montmul_pow_plain(
+        x, e, plain_field))
+    err = int((got.long() - want.long()).abs().max().item())
+    lanes = x.numel() // field.L
+    check(err == 0, f"montmul_pow {field.name} e of {e.bit_length()} bits on "
+          f"{lanes} lanes: kernel != plain (max err {err})")
+    chain = len(mm.exp_bits(e)) + sum(mm.exp_bits(e))
+    ms = graph_ms(torch, lambda: mm.montmul_pow(x, e, field), reps)
+    call_ms = cuda_ms(torch, lambda: mm.montmul_pow(x, e, field), reps)
+    bms, by = bound_ms(2 * lanes * field.L * 4,
+                       lanes * chain * montmul_ops(field.L // 2))
+    return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, shape=[lanes, field.L],
+                chain=chain, exponent_bits=e.bit_length())
+
+
+def say_pow(r, name, card):
+    say(f"[B1 chain launch {r['shape']}, {name}] ok, bit-exact vs the plain "
+        f"chain: {r['ms']:.4f} ms on the card, {r['call_ms']:.4f} ms a call, "
+        f"one launch for a chain of {r['chain']} "
+        f"dependent products ({r['exponent_bits']}-bit exponent; plain "
+        f"{r['plain_ms']:.1f} ms, {r['chain']} launches of the plain product; "
+        f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}) [{card}]")
+
+
+# Launches of B1 a path, the elementwise product's and the chain
+# launch's together: each Fermat inversion and square root is one launch.
+# The verify runs three chains: the decompress square root (606
+# products), the pairing's Fp inversion of the two G1 points' Z to
+# affine form (608) and the final exponentiation's Fp inversion (608), so
+# its 2462 launches of one product each became 2462 - 1822 + 3; the proof
+# batch two Fr inversions of 417 (854 -> 22); a commit batch one Fp
+# inversion to affine form (611 -> 4); verify_kzg_proof the verify's
+# three chains on 2 and 1 lanes.
+B1_LAUNCHES = {"verify": {"Fp": 643, "Fr": 10},
+               "verify_kzg_proof": {"Fp": 643},
+               "commit_batch": {"Fp": 4},
+               "proof_batch": {"Fp": 4, "Fr": 22},
+               "coeff": {"Fr": 22},
+               "open3": {"Fr": 21}}
+
+
+def b1_launches(launches, field: str) -> int:
+    f = field.lower()
+    return launches.get("montmul_" + f, 0) + launches.get("montmul_pow_" + f,
+                                                          0)
+
+
+def check_b1_launches(paths):
+    """B1's launches on every path of B1_LAUNCHES run so far."""
+    for path, want in B1_LAUNCHES.items():
+        for fld, n in want.items() if path in paths else ():
+            got = b1_launches(paths[path], fld)
+            check(got == n, f"B1 {fld} launched {got} times on the {path} "
+                  f"path, not {n}")
 
 
 def scan_adds(torch, seg) -> int:
@@ -507,14 +661,15 @@ def check_bucket(torch, pts, seg, reps: int):
     check(bool(same.all().item()), "bucket scan: kernel != plain after "
           f"normalisation in {int((~same).sum().item())} lanes of "
           f"{tuple(seg.shape)}")
-    ms = cuda_ms(torch, lambda: bucket._launch(pts, seg), reps)
+    ms = graph_ms(torch, lambda: bucket._launch(pts, seg), reps)
+    call_ms = cuda_ms(torch, lambda: bucket._launch(pts, seg), reps)
     g, n = seg.shape
     adds = scan_adds(torch, seg)
     bms, by = bound_ms(6 * 24 * 4 * g * n + 4 * g * n, adds * EC_ADD_OPS)
     check(grid.get("scan_local", 0) > 0,
           f"bucket scan on {tuple(seg.shape)} reported the grid {grid}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, adds=adds, shape=[24, g, n],
+    return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, adds=adds, shape=[24, g, n],
                 device_kernels=len(grid), grid=grid)
 
 
@@ -737,11 +892,13 @@ def prover_path(torch, ts, say_path):
 
     fractree.fractree_partials = rec_ft
     try:
-        got_pfs, wall, paths["proof_batch"] = run_path(
-            torch, lambda: tpukzg_torch.compute_blob_kzg_proof_batch(
-                blobs, cs, ts))
+        with PowRuns(torch) as pw:
+            got_pfs, wall, paths["proof_batch"] = run_path(
+                torch, lambda: tpukzg_torch.compute_blob_kzg_proof_batch(
+                    blobs, cs, ts))
     finally:
         fractree.fractree_partials = orig_ft
+    captured["pow_fr"] = [(x, e, f) for x, e, f in pw.got if f.name == "Fr"]
     say_path(f"proof_batch k={k}", wall, paths["proof_batch"])
     check(got_pfs == pfs, "proofs differ from the fixture's: "
           f"{[i for i in range(k) if got_pfs[i] != pfs[i]]}")
@@ -879,7 +1036,8 @@ def setup_path(torch, ts, triples, paths, say_card):
     b2 = hold_ec_add(torch, *step, REPS)
     b2.pop("out")
     say_card(f"[setup_gen n={ref.n}] B2 on step 200 of the G1 ladder "
-             f"{b2['shape']}: bit-exact vs plain, {b2['ms']:.4f} ms (plain "
+             f"{b2['shape']}: bit-exact vs plain, {b2['ms']:.4f} ms on the "
+             f"card, {b2['call_ms']:.4f} ms a call (plain "
              f"{b2['plain_ms']:.2f} ms, bound {b2['bound_ms']:.4f} ms)")
     g1 = tuple(c.movedim(-1, 0) for c in gen.lagrange_g1)
     ops_g1 = count_dispatch(torch, lambda: G1_LM.double(g1))
@@ -1038,7 +1196,8 @@ def single_verify_path(torch, ts, triples, paths, say_card):
     b2.pop("out")
     say_card(f"[verify_kzg_proof n={ts.n}] B2 on its 200th call on 2 lanes "
              f"(the ladder's) {b2['shape']}: bit-exact vs plain, "
-             f"{b2['ms']:.4f} ms (plain "
+             f"{b2['ms']:.4f} ms on the card, "
+             f"{b2['call_ms']:.4f} ms a call (plain "
              f"{b2['plain_ms']:.2f} ms, bound {b2['bound_ms']:.4f} ms)")
     return b2
 
@@ -1137,7 +1296,7 @@ def main() -> int:
     ptxas = ptxas_summary(_build.build_info.get("log", ""))
     for src in sorted(ptxas):
         say(f"[ptxas {src}] {json.dumps(ptxas[src])}")
-    for src in ("bucket.cu", "ec.cu", "ntt.cu", "fractree.cu"):
+    for src in ("bucket.cu", "ec.cu", "ntt.cu", "fractree.cu", "montmul.cu"):
         check(ptxas.get(src), f"no ptxas report for {src} in the build log")
         spilled = {k: v for k, v in ptxas[src].items()
                    if v.get("spill_bytes", 0)}
@@ -1152,7 +1311,10 @@ def main() -> int:
         r = check_montmul(torch, field, 1 << 20, gen, REPS)
         results["montmul_" + field.name.lower()] = r
         say(f"[B1 montmul {field.name}] ok, {r['check']}: {r['ms']:.4f} ms "
-            f"(plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms)")
+            f"on the card, {r['call_ms']:.4f} ms a call (plain "
+            f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms; an "
+            f"elementwise op with the same loads and stores "
+            f"{r['floor_ms']:.4f} ms) [{card}]")
 
     setup_t0 = time.perf_counter()
     ts = tpukzg_torch.generate_insecure_setup(0xDEADBEEF, 4096)
@@ -1161,13 +1323,17 @@ def main() -> int:
     pool = point_pool(torch, ts.setup)
     r = check_ec_add(torch, pool, 1 << 16, gen, REPS)
     results["ec_add"] = r
-    say(f"[B2 ec_add] ok, {r['check']}: {r['ms']:.4f} ms "
-        f"(plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms)")
+    say(f"[B2 ec_add] ok, {r['check']}: {r['ms']:.4f} ms on the card, "
+        f"{r['call_ms']:.4f} ms a call (plain {r['plain_ms']:.2f} ms, bound "
+        f"{r['bound_ms']:.4f} ms)")
     dbl_pool = check_ec_double(torch, pool, 1 << 16, gen, REPS)
-    say(f"[B6 ec_double {dbl_pool['shape']}] ok, {dbl_pool['check']}: "
-        f"{dbl_pool['ms']:.4f} ms (plain {dbl_pool['plain_ms']:.2f} ms, "
-        f"bound {dbl_pool['bound_ms']:.4f} ms by {dbl_pool['bound_by']}) "
-        f"[{card}]")
+    say_double(dbl_pool, dbl_pool["check"], card)
+    from tpukzg_torch.kernels import ec as ec_mod
+    cross = double_crossover(torch, pool, gen, REPS)
+    say(f"[B6 crossover] the launcher runs four threads a point up to "
+        f"{ec_mod.QUAD_MAX_LANES} lanes, one above; ms on the card by "
+        f"threads a point "
+        f"{json.dumps(cross)} [{card}]")
 
     # 4. the main path
     k_main = 256
@@ -1197,7 +1363,8 @@ def main() -> int:
     fold_run, x_run = (2, 8), (2 * k_main, 32)
     bucket._launch, fractree.fractree_partials = rec_launch, rec_ft
     try:
-        with DoubleRuns(torch, [fold_run, x_run]) as dbl:
+        with DoubleRuns(torch, [fold_run, x_run]) as dbl, \
+                PowRuns(torch) as pw:
             _build.launches.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1213,6 +1380,7 @@ def main() -> int:
         f"{json.dumps({k: round(v, 4) for k, v in phases.items()})}")
     say(f"[slice k={k_main}] kernel launches {json.dumps(launches)}")
     check(ok is True, f"k={k_main} batch did not verify")
+    check_b1_launches({"verify": launches})
 
     bad = bytearray(pfs[k_main // 2])
     bad[13] ^= 4
@@ -1300,9 +1468,20 @@ def main() -> int:
         check(key in dbl.got, f"no B6 call on {key[0]} lanes x{key[1]} in "
               "the k = 256 verify")
         r = b6[name] = hold_ec_double(torch, *dbl.got[key], REPS)
-        say(f"[B6 ec_double {r['shape']} x{r['times']}, {name}] ok, "
-            f"bit-exact vs plain: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} "
-            f"ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}) [{card}]")
+        say_double(r, name, card)
+    from tpukzg_torch.field.mont import P_MOD, R_MOD
+    chains = {}
+    for name, e, lanes in (("decompress square root", (P_MOD + 1) // 4,
+                            2 * k_main),
+                           ("pairing's G1 points to affine form, Fp "
+                            "inversion", P_MOD - 2, 2),
+                           ("final exponentiation's Fp inversion",
+                            P_MOD - 2, 1)):
+        hit = [(x, f) for x, e_, f in pw.got
+               if e_ == e and x.numel() // f.L == lanes]
+        check(hit, f"no chain launch of {name} in the k = {k_main} verify")
+        r = chains[name] = hold_pow(torch, hit[0][0], e, hit[0][1], REPS)
+        say_pow(r, name, card)
     seg_key = [key for key in captured if key != "fractree"]
     check(len(seg_key) == 2, f"bucket scan inputs captured: {seg_key}")
     parts = []
@@ -1311,13 +1490,15 @@ def main() -> int:
         r = check_bucket(torch, pts, seg, REPS)
         parts.append(r)
         say(f"[B3 bucket scan {r['shape']}] ok, affine-equal in every lane, "
-            f"the same limbs twice: {r['ms']:.3f} ms (plain "
+            f"the same limbs twice: {r['ms']:.3f} ms on the card, "
+            f"{r['call_ms']:.3f} ms a call (plain "
             f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms, "
             f"{r['adds']} adds; device kernels launched and their blocks "
             f"{json.dumps(r['grid'])})")
     results["bucket_scan"] = dict(
         max_abs_err=max(p["max_abs_err"] for p in parts),
         ms=sum(p["ms"] for p in parts),
+        call_ms=sum(p["call_ms"] for p in parts),
         plain_ms=sum(p["plain_ms"] for p in parts),
         bound_ms=sum(p["bound_ms"] for p in parts),
         bound_by="operations" if all(p["bound_by"] == "operations"
@@ -1341,11 +1522,16 @@ def main() -> int:
 
     paths, cap_fixed, ntt_in = prover_path(torch, ts, say_path)
     paths["verify"] = launches
+    check_b1_launches(paths)
+    check(len(cap_fixed["pow_fr"]) == 2, "the proof batch ran "
+          f"{len(cap_fixed['pow_fr'])} Fr chains, not its two inversions")
+    for i, (x, e, f) in enumerate(cap_fixed["pow_fr"]):
+        r = chains[f"proof batch's Fr inversion {i + 1}"] = hold_pow(
+            torch, x, e, f, REPS)
+        say_pow(r, f"proof batch's Fr inversion {i + 1}", card)
     r = b6["table build, a window's run"] = hold_ec_double(
         torch, *cap_fixed["table_run"], REPS)
-    say(f"[B6 ec_double {r['shape']} x{r['times']}, table build] ok, "
-        f"bit-exact vs plain: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, "
-        f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}) [{card}]")
+    say_double(r, "table build", card)
 
     # 7. B5, B4 and the fixed-base B3 on the prover path's own inputs
     from tpukzg_torch.ntt.ntt import get_plan
@@ -1404,15 +1590,17 @@ def main() -> int:
     check("suffix" in cap_fixed, "no fixed-base suffix scan was captured")
     s = check_bucket(torch, *cap_fixed["suffix"], REPS)
     say(f"[B3 bucket scan suffix {s['shape']}] ok, affine-equal in every "
-        f"lane, the same limbs twice: {s['ms']:.3f} ms (plain "
+        f"lane, the same limbs twice: {s['ms']:.3f} ms on the card, "
+        f"{s['call_ms']:.3f} ms a call (plain "
         f"{s['plain_ms']:.1f} ms, bound {s['bound_ms']:.4f} ms by "
         f"{s['bound_by']}; device kernels launched and their blocks "
         f"{json.dumps(s['grid'])})")
     r["other_shapes"] = {"suffix": {f: s[f] for f in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "shape", "grid")}}
+        "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape", "grid")}}
     results["bucket_scan_fixed"] = r
     say(f"[B3 bucket scan fixed-base {r['shape']}] ok, affine-equal in every "
-        f"lane, the same limbs twice: {r['ms']:.3f} ms (plain "
+        f"lane, the same limbs twice: {r['ms']:.3f} ms on the card, "
+        f"{r['call_ms']:.3f} ms a call (plain "
         f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
         f"{r['bound_by']}, {r['adds']} adds; device kernels launched and "
         f"their blocks {json.dumps(r['grid'])})")
@@ -1439,6 +1627,7 @@ def main() -> int:
     b2_gen = setup_path(torch, ts, triples, paths, say_card)
     compressed_path(torch, ts, triples, paths, say_card)
     b2_one = single_verify_path(torch, ts, triples, paths, say_card)
+    check_b1_launches(paths)
     results["ec_add"]["other_shapes"] = {"setup_gen_g1_ladder": b2_gen,
                                          "verify_kzg_proof_ladder": b2_one}
     (pts, seg), by_shape = msm_path(torch, ts.setup, paths, say_card)
@@ -1448,7 +1637,8 @@ def main() -> int:
     r["msm_launches_by_shape"] = by_shape
     results["bucket_scan_msm"] = r
     say_card(f"[B3 bucket scan 2^20 MSM row {r['shape']}] ok, affine-equal "
-             f"in every lane, the same limbs twice: {r['ms']:.3f} ms (plain "
+             f"in every lane, the same limbs twice: {r['ms']:.3f} ms on the "
+             f"card, {r['call_ms']:.3f} ms a call (plain "
              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
              f"{r['bound_by']}, {r['adds']} adds; device kernels launched "
              f"and their blocks {json.dumps(r['grid'])})")
@@ -1474,11 +1664,28 @@ def main() -> int:
                             if name != "verify fold, Horner run"}
     fold["other_shapes"]["pool, t = 1"] = dbl_pool
     results["ec_double"] = fold
+    sq = dict(chains["decompress square root"])
+    sq["check"] = ("bit-exact vs the plain chain on the inputs the verify "
+                   "gave it: the decompress square root, the pairing's "
+                   "and the final exponentiation's Fp inversions")
+    sq["other_shapes"] = {k: v for k, v in chains.items()
+                          if k.startswith(("final", "pairing"))}
+    results["montmul_pow_fp"] = sq
+    fr = dict(chains["proof batch's Fr inversion 1"])
+    fr["check"] = ("bit-exact vs the plain chain on the proof batch's two "
+                   "Fr inversions")
+    fr["other_shapes"] = {"proof batch's Fr inversion 2": chains[
+        "proof batch's Fr inversion 2"]}
+    results["montmul_pow_fr"] = fr
     meta = {
         "montmul_fp": ("src/tpukzg_torch/csrc/montmul.cu",
                        "src/tpukzg/pallas/montmul.py:133"),
         "montmul_fr": ("src/tpukzg_torch/csrc/montmul.cu",
                        "src/tpukzg/pallas/montmul.py:133"),
+        "montmul_pow_fp": ("src/tpukzg_torch/csrc/montmul.cu",
+                           "src/tpukzg/pallas/montmul.py:133"),
+        "montmul_pow_fr": ("src/tpukzg_torch/csrc/montmul.cu",
+                           "src/tpukzg/pallas/montmul.py:133"),
         "ec_add": ("src/tpukzg_torch/csrc/ec.cu",
                    "src/tpukzg/pallas/ec.py:71"),
         "ec_double": ("src/tpukzg_torch/csrc/ec.cu",
@@ -1495,10 +1702,15 @@ def main() -> int:
                             "src/tpukzg/pallas/bucket.py:117"),
     }
     # the path whose launches each entry reports; the counter name
-    path_of = {"bucket_scan_fixed": ("commit_batch", "bucket_scan"),
+    path_of = {"montmul_pow_fr": ("proof_batch", "montmul_pow_fr"),
+               "bucket_scan_fixed": ("commit_batch", "bucket_scan"),
                "ntt": ("coeff", "ntt"),
                "bucket_scan_msm": ("msm_2^20", "bucket_scan")}
-    regs = {"ec_add": ptxas["ec.cu"], "ec_double": ptxas["ec.cu"],
+    regs = {"montmul_fp": ptxas["montmul.cu"],
+            "montmul_fr": ptxas["montmul.cu"],
+            "montmul_pow_fp": ptxas["montmul.cu"],
+            "montmul_pow_fr": ptxas["montmul.cu"],
+            "ec_add": ptxas["ec.cu"], "ec_double": ptxas["ec.cu"],
             "bucket_scan": ptxas["bucket.cu"],
             "bucket_scan_fixed": ptxas["bucket.cu"],
             "bucket_scan_msm": ptxas["bucket.cu"],
@@ -1518,9 +1730,14 @@ def main() -> int:
                             bound_by=r["bound_by"], library_ms=None,
                             shape=r["shape"], check=r.get("check", ""),
                             **{k: r[k] for k in ("other_shapes", "grid",
-                                                 "times",
+                                                 "times", "chain",
+                                                 "group", "ms_one_thread",
+                                                 "ms_quad",
+                                                 "call_ms_one_thread",
+                                                 "call_ms_quad",
+                                                 "exponent_bits",
                                                  "device_kernels",
-                                                 "call_ms",
+                                                 "call_ms", "floor_ms",
                                                  "alternatives",
                                                  "msm_launches_by_shape")
                                if k in r},

@@ -1,5 +1,6 @@
 // B2: complete projective addition on G1: y^2 = x^3 + 4 over Fp, and
-// B6: complete projective doubling (ec_double, at the end of this file).
+// B6: complete projective doubling (ec_double and ec_double_quad, at the end
+// of this file).
 //
 // Replaces the device function tpukzg/pallas/ec.py::ec_add (Renes-
 // Costello-Batina 2015, Alg. 7, a = 0, b3 = 3b = 12): 12 Montgomery
@@ -124,7 +125,9 @@ __device__ __forceinline__ void load_point(const Words& d, const int32_t* x,
 // and carries as PTX carry chains (mad.lo.cc / madc.hi.cc), the shift by
 // a word folded into the reduction's chain.  The same t, m and final
 // subtraction as mont_mul, so the result is bit-identical.  r may alias
-// a.
+// a.  With both operands in registers mont_mul<FpT> was as fast or
+// faster (PERF.md section 6), so B1 and the quad doubling take it; the
+// products whose second operand stays in shared memory take these rows.
 __device__ __forceinline__ void fp_mul(uint32_t* r, const uint32_t* a,
                                        const Words& b) {
   uint32_t t[14];
@@ -324,6 +327,59 @@ __device__ __forceinline__ void ec_double(const Words& p, const Words& w) {
   fp_mul(t2, t0, w.at(0));          // t6 X Y
   add_mod<FpT>(t2, t2, t2);
   p.put(0, t2);                     // X3 = 2 t6 X Y
+}
+
+// B6 on four threads a point: p = 2 p, the same formula and field
+// values as ec_double.  The eight products fall into two layers of four
+// independent ones, so each thread of a quad (four neighbouring lanes of
+// a warp, q = 0..3 its place in the quad) takes one product of each
+// layer, with both operands in registers (field.cuh's mont_mul):
+//   layer 1: q0 Y^2, q1 Y Z, q2 Z^2, q3 X Y;
+//   layer 2: q0 3b Z^2 8 Y^2, q1 Y Z 8 Y^2 (Z3), q2 t6 (Y^2 + 3b Z^2),
+//            q3 t6 X Y (X3 / 2), with t6 = Y^2 - 9b Z^2.
+// Y^2 and Z^2 reach the whole quad by warp shuffles, every thread makes
+// the small steps between the layers itself, and the four layer-2
+// products reach the whole quad the same way, so each thread ends with
+// the whole point (X, Y, Z in registers, 12 words each) for the next
+// doubling.  A doubling's chain of dependent work is two products and
+// the small steps, not eight products.  All 32 lanes of the warp must
+// call it together (the shuffles name the whole warp).
+__device__ __forceinline__ void ec_double_quad(uint32_t* X, uint32_t* Y,
+                                               uint32_t* Z, int q) {
+  constexpr unsigned kAll = 0xffffffffu;
+  uint32_t a[12], b[12], mine[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    a[j] = q == 2 ? Z[j] : (q == 3 ? X[j] : Y[j]);
+    b[j] = (q == 0 || q == 3) ? Y[j] : Z[j];
+  }
+  mont_mul<FpT>(mine, a, b);        // Y^2, Y Z, Z^2, X Y
+  uint32_t t0[12], t2[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    t0[j] = __shfl_sync(kAll, mine[j], 0, 4);     // Y^2
+    t2[j] = __shfl_sync(kAll, mine[j], 2, 4);     // Z^2
+  }
+  fp_mul_small12(t2, t2);           // 3b Z^2
+  fp_mul_small8(X, t0);             // 8 Y^2 (X is dead)
+  add_mod<FpT>(Y, t0, t2);          // Y^2 + 3b Z^2 (Y is dead)
+  fp_mul_small3(Z, t2);
+  sub_mod<FpT>(t0, t0, Z);          // t6 = Y^2 - 9b Z^2
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    a[j] = q == 0 ? t2[j] : (q == 1 ? mine[j] : t0[j]);
+    b[j] = q <= 1 ? X[j] : (q == 2 ? Y[j] : mine[j]);
+  }
+  mont_mul<FpT>(mine, a, b);
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    a[j] = __shfl_sync(kAll, mine[j], 0, 4);      // 3b Z^2 8 Y^2
+    b[j] = __shfl_sync(kAll, mine[j], 2, 4);      // t6 (Y^2 + 3b Z^2)
+    X[j] = __shfl_sync(kAll, mine[j], 3, 4);      // t6 X Y
+    Z[j] = __shfl_sync(kAll, mine[j], 1, 4);      // Z3 = 8 Y^3 Z
+  }
+  add_mod<FpT>(Y, b, a);            // Y3
+  add_mod<FpT>(X, X, X);            // X3 = 2 t6 X Y
 }
 
 }  // namespace tk

@@ -104,7 +104,6 @@ def in_subgroup_fast(p, curve=G1_LM):
 # batched decompression
 # ---------------------------------------------------------------------------
 
-_SQRT_BITS = FP._bits((P_MOD + 1) // 4)
 _B_MONT = FP.to_mont_host(4)
 
 
@@ -114,7 +113,7 @@ def _decompress_sqrt(x_can, sign, inf):
     xm = FP.to_mont(x_can)
     rhs = FP.add(FP.mul(FP.sqr(xm), xm),
                  upload(_B_MONT, xm.device))
-    y = FP.pow_bits(rhs, _SQRT_BITS)
+    y = FP.pow_int(rhs, (P_MOD + 1) // 4)
     ok_curve = FP.eq(FP.sqr(y), rhs)
     flip = FP.gt_half(FP.from_mont(y)) != sign
     y = FP.select(flip, FP.neg(y), y)

@@ -190,7 +190,6 @@ class FieldParams:
         self.sub_bias[0] += 1
         self.half_comp = int_to_limbs(self.R - (modulus - 1) // 2 - 1,
                                       n_limbs)
-        self.inv_exp_bits = self._bits(modulus - 2)
         self._consts = {}
 
     def __repr__(self):
@@ -282,22 +281,27 @@ class FieldParams:
         return result
 
     def pow_bits(self, a, bits):
-        """a ** e for a static LSB-first bit table; the multiply is
-        skipped where the bit is 0 (the same value as a select)."""
-        bits = [int(v) for v in np.asarray(bits)[::-1]]
-        acc = a
-        for bit in bits[1:]:
-            acc = self.mul(acc, acc)
-            if bit:
-                acc = self.mul(acc, a)
-        return acc
+        """a ** e for a static LSB-first bit table (leading zeros
+        allowed)."""
+        return self.pow_int(a, sum(int(v) << i
+                                   for i, v in enumerate(np.asarray(bits))))
 
     def pow_int(self, a, e: int):
-        return self.pow_bits(a, self._bits(e))
+        """a ** e.  On a CUDA tensor one launch of the chain kernel;
+        otherwise the chain's products one by one, most significant bit
+        first, the multiply skipped where the bit is 0 (the same value as
+        the JAX fori_loop's select).  e = 0 gives one."""
+        from tpukzg_torch.kernels import montmul as _mm
+        if e == 0:
+            return self.const("one_mont", a.device, I32).expand(
+                a.shape).clone()
+        if self.plain:
+            return _mm.montmul_pow_plain(a, e, self)
+        return _mm.montmul_pow(a, e, self)
 
     def inv(self, a):
         """Fermat inversion a^(p-2); inv(0) = 0."""
-        return self.pow_bits(a, self.inv_exp_bits)
+        return self.pow_int(a, self.modulus - 2)
 
     def batch_inv(self, a, axis: int = 0):
         """Montgomery-trick inversion of every element along `axis` (an

@@ -8,9 +8,13 @@ thin elementwise launcher (``csrc/ec.cu``) so every lane can be checked
 alone and so the curve code's adds on the card take one launch.
 
 B6 replaces ``tpukzg/pallas/ec.py::ec_double``: the ``__device__``
-function ``ec_double`` of ``csrc/ec.cuh`` and a launcher that doubles
-each point t times in a row in one launch (a Horner fold's run of c, a
-table window's, a run of the subgroup check's chain).
+functions ``ec_double`` (one thread a point) and ``ec_double_quad`` (four
+threads a point, one product of each of the formula's two layers of four
+products a thread) of ``csrc/ec.cuh``, and a launcher that doubles each
+point t times in a row in one launch (a Horner fold's run of c, a table
+window's, a run of the subgroup check's chain).  ``ec_double`` takes the
+quad kernel up to ``QUAD_MAX_LANES`` lanes and the one-thread kernel
+above (``double_group``); its ``group`` argument forces either.
 
 The plain versions are the same formulas on tensors: 12 (8) field
 products issued as two batched products of 6 (4), and the add_mod /
@@ -90,12 +94,25 @@ def _limb_major(name, coords):
     shape = coords[0].shape
     if shape[0] != 24:
         raise ValueError(f"{name}: limb axis of {tuple(shape)} is not 24")
-    return ([c.to(I32).contiguous() for c in coords], shape,
+    return ([c if c.dtype == I32 and c.is_contiguous()
+             else c.to(I32).contiguous() for c in coords], shape,
             coords[0].numel() // 24)
 
 
 _fn = None
 _fn_double = None
+
+# Lane counts up to which B6 runs four threads a point: there a run is
+# bound by its chain of dependent products, which the quad kernel cuts
+# from 8 to 2 a doubling; above it the card is full either way and the
+# one-thread kernel does less work a point.  Set from the times of both
+# kernels on the card (PERF.md section 6, B6 rows).
+QUAD_MAX_LANES = 1 << 14
+
+
+def double_group(n: int) -> int:
+    """Threads a point B6 runs on n lanes: 4 (quad kernel) or 1."""
+    return 4 if n <= QUAD_MAX_LANES else 1
 
 
 def ec_add(p, q):
@@ -121,14 +138,18 @@ def ec_add(p, q):
     return tuple(out)
 
 
-def ec_double(p, times: int = 1):
+def ec_double(p, times: int = 1, group: int | None = None):
     """[2^times] P on limb-major (X, Y, Z) coords of (24, *batch); the
     batch axes broadcast.  CPU tensors -> plain version; CUDA tensors ->
-    the kernel, one launch for the whole run of doublings."""
+    one launch for the whole run of doublings, by `group` threads a point
+    (1 or 4; None: what ``double_group`` picks for the lane count)."""
     if times < 0:
         raise ValueError(f"ec_double: times={times} < 0")
+    if group not in (None, 1, 4):
+        raise ValueError(f"ec_double: {group} threads a point")
     dev = _device_of("ec_double", p)
-    coords = torch.broadcast_tensors(*p)
+    coords = p if p[0].shape == p[1].shape == p[2].shape else \
+        torch.broadcast_tensors(*p)
     if dev.type == "cpu":
         return ec_double_plain(tuple(coords), FP_LM_PLAIN, times)
     coords, shape, n = _limb_major("ec_double", coords)
@@ -137,11 +158,12 @@ def ec_double(p, times: int = 1):
     out = [torch.empty(shape, dtype=I32, device=dev) for _ in range(3)]
     if n == 0:
         return tuple(out)
+    group = double_group(n) if group is None else group
     global _fn_double
     if _fn_double is None:
-        _fn_double = _build.fn("tpukzg_ec_double", "pppppplllip")
+        _fn_double = _build.fn("tpukzg_ec_double", "ppppppllliip")
     err = _fn_double(*[o.data_ptr() for o in out],
-                     *[c.data_ptr() for c in coords], n, 1, n, times,
+                     *[c.data_ptr() for c in coords], n, 1, n, times, group,
                      _build.stream_ptr(dev))
     _build.check(err, "tpukzg_ec_double")
     _build.launches["ec_double"] += 1

@@ -1,4 +1,6 @@
-"""B1: elementwise Montgomery product a*b*R^-1 mod p, kernel and plain version.
+"""B1: elementwise Montgomery product a*b*R^-1 mod p, and the chain launch
+a^e (a whole square-and-multiply chain in one launch), kernels and plain
+versions.
 
 Replaces ``tpukzg/pallas/montmul.py::_montmul_kernel`` (the standalone
 lane-tiled kernel) and carries its core ``_montmul_lm_core`` as the
@@ -11,6 +13,11 @@ field product of the port's plain tensor code comes here (one launch per
 batched product instead of ~100 tensor ops); on a CPU tensor the plain
 version below runs.
 
+``montmul_pow`` runs a pow chain (a Fermat inversion, the square root)
+as one launch of the same source's chain kernel; its plain version,
+``montmul_pow_plain``, runs the chain's products one by one with
+``montmul_plain``.
+
 Plain version: the separated reduction of ``pallas/montmul.py:114-122``
     T = a*b;  m = (T mod R) * mu mod R;  t = (T + m*p) / R;  t -= p if >= p
 with int64 column sums and prefix carries (``field/mont.py``).  Both
@@ -20,6 +27,8 @@ T + m p = 0 mod R.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -83,3 +92,82 @@ def montmul(a, b, field, limb_dim: int = -1):
     _build.check(err, "tpukzg_montmul")
     _build.launches["montmul_" + field.name.lower()] += 1
     return out
+
+
+def exp_bits(e: int):
+    """e's bits, most significant first, the top one dropped: a chain
+    starts from acc = a, then squares at each bit and multiplies where
+    it is 1 (e >= 1)."""
+    return [int(c) for c in bin(e)[3:]]
+
+
+def montmul_pow_plain(a, e: int, field, limb_dim: int = -1):
+    """a^e, e >= 1, by the products of the chain kernel in its order, each
+    a plain tensor product."""
+    acc = a
+    for bit in exp_bits(e):
+        acc = montmul_plain(acc, acc, field, limb_dim)
+        if bit:
+            acc = montmul_plain(acc, a, field, limb_dim)
+    return acc
+
+
+_fn_pow = None
+_words: dict = {}
+
+
+def _exp_words(e: int):
+    w = _words.get(e)
+    if w is None:
+        w = _words[e] = (ctypes.c_uint32 * 12)(
+            *[(e >> (32 * k)) & 0xFFFFFFFF for k in range(12)])
+    return w
+
+
+def _element_rows(a, L: int):
+    """a (..., L) as an (n, L) view whose rows are elements, read in place
+    when its layout is trailing or limb-major (a moved view of (L, ...)),
+    else a contiguous copy."""
+    n = a.numel() // L
+    try:
+        v = a.view(n, L)
+    except RuntimeError:
+        v = None
+    if v is None or v.stride() not in ((L, 1), (1, n)):
+        v = a.contiguous().view(n, L)
+    return v
+
+
+def montmul_pow(a, e: int, field):
+    """a^e (1 <= e < 2^384) on the trailing limb axis, in a's layout (a
+    limb-major tensor moved to a trailing view stays in place).  CPU
+    tensors -> plain version; CUDA tensors -> the chain kernel, one
+    launch."""
+    if not 1 <= e < 1 << 384:
+        raise ValueError(f"montmul_pow: exponent of {e.bit_length()} bits")
+    if a.device.type == "cpu":
+        return montmul_pow_plain(a, e, field)
+    if a.device.type != "cuda":
+        raise ValueError(f"montmul_pow: tensor on {a.device}")
+    if a.is_floating_point():
+        raise TypeError("montmul_pow: limbs must be an integer tensor")
+    L = field.L
+    if a.shape[-1] != L:
+        raise ValueError(f"montmul_pow: limb axis of {tuple(a.shape)} is "
+                         f"not {L}")
+    v = _element_rows(a.to(I32), L)
+    n = v.shape[0]
+    out = torch.empty_strided(v.shape, v.stride(), dtype=I32,
+                              device=a.device)
+    if n == 0:
+        return out.view(a.shape)
+    global _fn_pow
+    if _fn_pow is None:
+        _fn_pow = _build.fn("tpukzg_montmul_pow", "pplllpiip")
+    es, ls = v.stride()
+    err = _fn_pow(out.data_ptr(), v.data_ptr(), n, es, ls,
+                  ctypes.addressof(_exp_words(e)), e.bit_length(),
+                  FIELD_ID[field.name], _build.stream_ptr(a.device))
+    _build.check(err, "tpukzg_montmul_pow")
+    _build.launches["montmul_pow_" + field.name.lower()] += 1
+    return out.view(a.shape)

@@ -6,8 +6,8 @@ it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
 
-Tolerances: montmul, ec_add, the NTT and the fraction-tree numerator
-exact; the scans affine-equal (the kernel adds in chunks and runs, in
+Tolerances: montmul and its chain launch, ec_add, ec_double (both
+kernels), the NTT and the fraction-tree numerator exact; the scans affine-equal (the kernel adds in chunks and runs, in
 another order than the plain `loop` scan)."""
 
 import pytest
@@ -511,3 +511,151 @@ def test_pipeline_stages_do_not_sync_on_card(cuda, monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert pend.result() is True
+
+
+def _double_lanes(cuda, lanes, seed):
+    """`lanes` SRS points (drawn with repeats) with infinity in lane 0
+    and, from 5 lanes on, in the last lane."""
+    pool = tuple(torch.from_numpy(c).to(cuda) for c in srs_points())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.randint(0, pool[0].shape[1], (lanes,), generator=gen,
+                        device=cuda)
+    p = [c[:, idx].contiguous() for c in pool]
+    inf = G1_LM_PLAIN.inf((1,), cuda)
+    for c in range(3):
+        p[c][:, 0] = inf[c][:, 0]
+        if lanes >= 5:
+            p[c][:, -1] = inf[c][:, 0]
+    return tuple(p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 3, 5, 512, 1 << 16])
+@pytest.mark.parametrize("times", [1, 8, 32])
+def test_ec_double_both_kernels_on_card(cuda, times, lanes):
+    """B6 by one thread a point and by four (the quad kernel), each one
+    launch, against the plain version bit for bit: ragged last quads
+    (1, 3, 5 lanes), the Horner fold's 2 lanes, the subgroup check's 512
+    and 2^16."""
+    from tpukzg_torch.kernels import _build
+    p = _double_lanes(cuda, lanes, times + lanes)
+    want = ec.ec_double_plain(p, FP_LM_PLAIN, times)
+    for group in (1, 4):
+        before = _build.launches["ec_double"]
+        got = ec.ec_double(p, times, group)
+        assert _build.launches["ec_double"] - before == 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), group
+    assert bool(G1_LM_PLAIN.is_inf(tuple(c[:, :1] for c in want)).all())
+
+
+@pytest.mark.cuda
+def test_ec_kernels_on_every_device_on_card(cuda):
+    """B2 and both B6 kernels on each visible card, several launches
+    each: every call launches once (the counts stay right) and agrees
+    with the plain version, on the first device and the others alike (no
+    launch depends on a per-device attribute set elsewhere)."""
+    from tpukzg_torch.kernels import _build
+    p0, q0 = ec_inputs()
+    for d in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", d)
+        with torch.cuda.device(dev):
+            p = tuple(torch.from_numpy(c).to(dev) for c in p0)
+            q = tuple(torch.from_numpy(c).to(dev) for c in q0)
+            want_add = ec.ec_add_plain(p, q, FP_LM_PLAIN)
+            want_dbl = ec.ec_double_plain(p, FP_LM_PLAIN, 3)
+            before = dict(_build.launches)
+            for _ in range(3):
+                assert all(torch.equal(a, b) for a, b in zip(
+                    ec.ec_add(p, q), want_add))
+                for group in (1, 4):
+                    assert all(torch.equal(a, b) for a, b in zip(
+                        ec.ec_double(p, 3, group), want_dbl))
+            assert _build.launches["ec_add"] - before.get("ec_add", 0) == 3
+            assert _build.launches["ec_double"] - \
+                before.get("ec_double", 0) == 6
+
+
+def _card_elems(F, cuda, lanes, seed):
+    """(lanes, L) canonical Montgomery elements made on the card, zero in
+    lane 0 and 1 in lane 1 where there is room."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(0, 1 << 16, (lanes, F.L), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    x[:, -1] &= 0x0FFF                       # below 2^(16 L - 4) < p, r
+    x[0] = 0
+    if lanes > 1:
+        x[1] = torch.from_numpy(F.one_mont).to(cuda)
+    return x
+
+
+POW_CASES = [(FP, FP_PLAIN, "sqrt", (FP.modulus + 1) // 4),
+             (FP, FP_PLAIN, "inv", FP.modulus - 2),
+             (FR, FR_PLAIN, "inv", FR.modulus - 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["trailing", "limb_major"])
+@pytest.mark.parametrize("lanes", [1, 16, 512, 8192])
+@pytest.mark.parametrize("case", POW_CASES,
+                         ids=["fp-sqrt", "fp-inv", "fr-inv"])
+def test_montmul_pow_kernel_on_card(cuda, case, lanes, layout):
+    """The chain launch against the plain chain (the same products one
+    by one) bit for bit: the square root's and the Fermat inversions'
+    exponents, on (lanes, L) and on a moved view of (L, lanes), which the
+    kernel reads in place."""
+    from tpukzg_torch.kernels import _build
+    F, FP_, _, e = case
+    x = _card_elems(F, cuda, lanes, lanes + e % 97)
+    if layout == "limb_major":
+        x = x.T.contiguous().movedim(0, -1)
+    want = montmul.montmul_pow_plain(x, e, FP_)
+    key = "montmul_pow_" + F.name.lower()
+    before = _build.launches[key]
+    got = montmul.montmul_pow(x, e, F)
+    assert _build.launches[key] - before == 1
+    assert got.stride() == x.stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", [(FP, FP_PLAIN), (FR, FR_PLAIN)],
+                         ids=["fp", "fr"])
+def test_pow_bits_is_one_launch_on_card(cuda, fields):
+    """FieldParams.pow_bits, inv and pow_int on a CUDA tensor: one launch
+    of the chain kernel and no other; the limb-major inverse too."""
+    from tpukzg_torch.field.limb_major import FieldLM
+    from tpukzg_torch.kernels import _build
+    F, FP_ = fields
+    x = _card_elems(F, cuda, 64, 3)
+    for fn, ref in ((lambda: F.inv(x), lambda: FP_.inv(x)),
+                    (lambda: F.pow_int(x, 5), lambda: FP_.pow_int(x, 5)),
+                    (lambda: FieldLM(F).inv(x.T.contiguous()).T,
+                     lambda: FP_.inv(x))):
+        want = ref()
+        before = dict(_build.launches)
+        got = fn()
+        after = dict(_build.launches)
+        diff = {k: v - before.get(k, 0) for k, v in after.items()
+                if v != before.get(k, 0)}
+        assert diff == {"montmul_pow_" + F.name.lower(): 1}
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_no_spill_in_b1_b6_on_card(cuda):
+    """ptxas reports no spill for any kernel of montmul.cu (the product
+    and the chain kernel) or ec.cu (B2 and both B6 kernels)."""
+    import re
+    from tpukzg_torch.kernels import _build
+    _build.lib()
+    log, src, seen = _build.build_info["log"], None, {}
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and src in ("montmul.cu", "ec.cu"):
+            seen.setdefault(src, []).append(int(m[1]) + int(m[2]))
+    assert len(seen.get("montmul.cu", [])) >= 4      # 2 kernels x 2 fields
+    assert len(seen.get("ec.cu", [])) >= 3
+    assert all(v == 0 for vs in seen.values() for v in vs), seen

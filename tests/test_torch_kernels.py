@@ -4,6 +4,7 @@ the JAX function as the JAX tests run it on the CPU.  Tolerance: exact
 themselves are held against these plain versions on a card by
 tests/test_torch_cuda.py."""
 
+import functools
 import random
 
 import numpy as np
@@ -107,6 +108,61 @@ def test_ec_double_run_equals_single_doubles():
     k = torch.from_numpy(FR.from_int([1 << 5] * 8))
     ladder = G1_LM_PLAIN.scalar_mul(tp, k)
     assert bool(G1_LM_PLAIN.eq(ladder, one).all())
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_double_steps():
+    """Lanes of 1, 3 and 5 SRS points (infinity in the second lane of the
+    group of 3) and their first 32 doublings by the plain version, the
+    32 stacked as lanes; and the JAX ec_double of those 32 x 9 lanes,
+    one eager call (as the kernel body runs in interpret mode)."""
+    import jax.numpy as jnp
+    from tpukzg.pallas.ec import ec_double as jec_double
+    pts = [c[:, 8:17].copy() for c in _double_inputs()]
+    inf = (np.zeros(24, np.int32), FP.one_mont, np.zeros(24, np.int32))
+    for c in range(3):
+        pts[c][:, 2] = inf[c]
+    steps = [tuple(torch.from_numpy(c) for c in pts)]
+    for _ in range(32):
+        steps.append(ec.ec_double_plain(steps[-1], FP_LM_PLAIN))
+    inputs = [np.concatenate([s[c].numpy() for s in steps[:32]], 1)
+              for c in range(3)]
+    mu = jnp.asarray(np.asarray(JFP.mu_limbs, np.uint32)[:, None])
+    pm = jnp.asarray(np.asarray(JFP.mod_limbs, np.uint32)[:, None])
+    ref = jec_double(tuple(jnp.asarray(c.astype(np.uint32)) for c in inputs),
+                     mu, pm, 24)
+    return steps, [np.asarray(r).astype(np.int32) for r in ref]
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 5])
+@pytest.mark.parametrize("times", [1, 8, 32])
+def test_ec_double_runs_vs_pallas_ec(times, lanes):
+    """B6's layered plain version (two batched products of four, as the
+    quad kernel splits them) on runs of t = 1, 8 and 32 over 1, 3 and 5
+    lanes: each of the first 32 doublings equals the JAX ec_double of the
+    same input bit for bit, so a run of t equals t JAX doublings; the run
+    in one call equals the steps, and the CPU wrapper takes it."""
+    steps, ref = _jax_double_steps()
+    for k in range(32):
+        for c in range(3):
+            assert np.array_equal(steps[k + 1][c].numpy(),
+                                  ref[c][:, 9 * k:9 * k + 9])
+    sl = {1: slice(0, 1), 3: slice(1, 4), 5: slice(4, 9)}[lanes]
+    p = tuple(c[:, sl] for c in steps[0])
+    got = ec.ec_double_plain(p, FP_LM_PLAIN, times)
+    assert all(torch.equal(g, s[:, sl]) for g, s in zip(got, steps[times]))
+    assert all(torch.equal(g, w) for g, w in zip(ec.ec_double(p, times), got))
+
+
+def test_ec_double_group_by_lanes():
+    """The launcher's choice of threads a point: four up to
+    QUAD_MAX_LANES lanes, one above."""
+    m = ec.QUAD_MAX_LANES
+    assert [ec.double_group(n) for n in (1, 2, 512, 4096, m, m + 1)] == \
+        [4, 4, 4, 4, 4, 1]
+    with pytest.raises(ValueError):
+        ec.ec_double(tuple(torch.zeros((24, 2), dtype=torch.int32)
+                           for _ in range(3)), 1, 2)
 
 
 def test_ec_double_refuses_other_devices():

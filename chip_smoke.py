@@ -7,6 +7,8 @@
     python3 chip_smoke.py --verify SRC  # the k=256 verify of
                                      # SRC/tpukzg_torch alone, timed and
                                      # counted (see verify_main)
+    python3 chip_smoke.py --dist     # the multi-GPU phase alone, on
+                                     # every card present (dist_main)
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit) and torch's CUDA version;
@@ -64,7 +66,7 @@ Phases, each printed on its own line:
      pass at (16, 4096) and B4 at k = 16 must each run at least one block
      an SM; then B5 and B4 timed at other splits and grids than the
      launchers' (the evidence for their choice);
-  8. this slice's paths, each with its launch counts and the card's name
+  8. the setup paths, each with its launch counts and the card's name
      and power limit on every line: the n = 4096 setup generated from
      scratch (tau = 0xDEADBEEF) into a temporary directory, equal to the
      committed SRS in affine form, with the lines of the committed G2
@@ -76,7 +78,24 @@ Phases, each printed on its own line:
      over 2^20 points (8 chunks of 2^17) equal to [sum k_i d_i] G1, and
      B3 on one row of a chunk against its plain version; B6's launches on
      every path;
-  9. one JSON line of kernel numbers, then the result line.  For every
+  9. the windowed ladder (what scalar_mul runs on the card) against the
+     256-step ladder in affine form on G1 (24, 2) and (24, 8192) and on
+     G2 (the setup generation and verify_kzg_proof above already ran it:
+     B2 and B6 held there on its step adds and runs of 4 doublings);
+     pairing(G1, G2) equal to golden's value (computed on the host) and
+     e([a] P, Q) == e(P, [a] Q); the generic Pippenger over 64 G2 points
+     equal to golden; msm_batch with k = 16 rows over the n = 4096
+     Lagrange points equal to 16 calls of msm, and B3 on its first chunk
+     of rows against its plain version; then the multi-GPU paths
+     through tpukzg_torch.dist.launch at world size = the cards present
+     (NCCL, one card a rank, the kernels built by this process first):
+     ShardedMsm over 2^22 points equal to the single-device msm,
+     DistNtt at 2^18 equal to NttPlan bit for bit (forward and
+     inverse), ShardedBatchVerifier on the k = 256 valid, tampered and
+     swapped batches giving the sync path's verdicts; B5 at the column
+     and row batches of the split DistNtt used; B2's and B6's launches
+     on every path;
+ 10. one JSON line of kernel numbers, then the result line.  For every
      kernel `ms` is its time on the card (CUDA-graph replays, no host
      time: graph_ms) and `call_ms` the time around one Python call of
      its wrapper (CUDA events: cuda_ms), at the same inputs.
@@ -87,6 +106,8 @@ falls back to the CPU and imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
 import glob
 import json
 import os
@@ -216,8 +237,9 @@ def count_dispatch(torch, fn) -> int:
 
 def device_busy(torch, fn):
     """One run of fn under torch.profiler, device activity only ->
-    (wall s, device-busy s, device kernels, top five by device time).
-    Busy is the union of the traced device intervals."""
+    (wall s, device-busy s, device kernels, top five by device time, the
+    trace's garbage as (objects, s to collect)).  Busy is the union of
+    the traced device intervals."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -239,7 +261,35 @@ def device_busy(torch, fn):
             reach = t
     top = [(name[:60], round(us * 1e-3, 3))
            for name, us in by_name.most_common(5)]
-    return wall, busy * 1e-6, len(spans), top
+    # the trace's event tree is cyclic garbage (about eleven objects an
+    # event) that only a full collection frees: free it here, untimed,
+    # or the next full pass lands in whatever path runs then
+    del prof
+    t0 = time.perf_counter()
+    freed = gc.collect()
+    return (wall, busy * 1e-6, len(spans), top,
+            (freed, time.perf_counter() - t0))
+
+
+@contextlib.contextmanager
+def gc_clock():
+    """Python's cyclic-GC passes while the block runs -> a dict filled on
+    leaving: passes, seconds, objects collected."""
+    out, t0 = dict(passes=0, seconds=0.0, collected=0), [0.0]
+
+    def cb(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            out["passes"] += 1
+            out["seconds"] += time.perf_counter() - t0[0]
+            out["collected"] += info["collected"]
+
+    gc.callbacks.append(cb)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(cb)
 
 
 def card_line():
@@ -436,8 +486,12 @@ def hold_ec_double(torch, p, times: int, reps: int):
     from tpukzg_torch.field.limb_major import FP_LM_PLAIN
     from tpukzg_torch.kernels import ec
     p = tuple(c.contiguous() for c in torch.broadcast_tensors(*p))
-    want = ec.ec_double_plain(p, FP_LM_PLAIN, times)
     lanes = p[0].numel() // 24
+    # Z = 0 is infinity, which doubling maps to itself limb for limb
+    finite = int((p[2] != 0).any(0).sum().item())
+    check(finite > 0, f"ec_double x{times} on {lanes} lanes: every input "
+          "point is at infinity, which holds no kernel")
+    want = ec.ec_double_plain(p, FP_LM_PLAIN, times)
     err, ms_by, call_by = 0, {}, {}
     for group in (1, 4):
         got = ec.ec_double(p, times, group)
@@ -459,6 +513,7 @@ def hold_ec_double(torch, p, times: int, reps: int):
     return dict(max_abs_err=err, ms=ms_by[group], call_ms=call_by[group],
                 plain_ms=pms, bound_ms=bms, bound_by=by,
                 shape=list(p[0].shape), times=times, group=group,
+                finite_lanes=finite,
                 ms_one_thread=ms_by[1], call_ms_one_thread=call_by[1],
                 ms_quad=ms_by[4], call_ms_quad=call_by[4], chain=8 * times,
                 chain_quad=2 * times)
@@ -466,7 +521,8 @@ def hold_ec_double(torch, p, times: int, reps: int):
 
 def say_double(r, name, card):
     say(f"[B6 ec_double {r['shape']} x{r['times']}, {name}] ok, both kernels "
-        f"bit-exact vs plain: {r['ms']:.4f} ms on the card, "
+        f"bit-exact vs plain ({r['finite_lanes']} lanes not at infinity): "
+        f"{r['ms']:.4f} ms on the card, "
         f"{r['call_ms']:.4f} ms a call, by the launcher's choice ("
         f"{r['group']} threads a point); one thread a point "
         f"{r['ms_one_thread']:.4f} / {r['call_ms_one_thread']:.4f} ms, a "
@@ -511,11 +567,17 @@ def check_ec_double(torch, pool, lanes: int, gen, reps: int):
 
 class DoubleRuns:
     """Keeps the inputs of B6's first call at each wanted (lanes, times)
-    while active: `with DoubleRuns(torch, [(2, 8)]) as cap: ...`, then
-    cap.got[(2, 8)] = (p, times)."""
+    whose points are not all at infinity, while active: `with
+    DoubleRuns(torch, [(2, 8)]) as cap: ...`, then cap.got[(2, 8)] = (p,
+    times).  A ladder's first run doubles infinity in every lane, which
+    would hold an identity kernel too; so the first `keep` calls at each
+    key are cloned (no host sync inside the run) and the pick is made on
+    leaving."""
 
-    def __init__(self, torch, wanted):
-        self.torch, self.wanted, self.got = torch, set(wanted), {}
+    def __init__(self, torch, wanted, keep: int = 8):
+        self.torch, self.wanted, self.keep = torch, set(wanted), keep
+        self.seen = {key: [] for key in self.wanted}
+        self.got = {}
 
     def __enter__(self):
         from tpukzg_torch.kernels import ec
@@ -524,9 +586,9 @@ class DoubleRuns:
         def rec(p, times=1, group=None):
             lanes = self.torch.broadcast_shapes(
                 *(c.shape for c in p))[1:].numel()
-            key = (lanes, times)
-            if key in self.wanted and key not in self.got:
-                self.got[key] = (tuple(c.clone() for c in p), times)
+            runs = self.seen.get((lanes, times))
+            if runs is not None and len(runs) < self.keep:
+                runs.append((tuple(c.clone() for c in p), times))
             return orig(p, times, group)
 
         ec.ec_double = rec
@@ -535,6 +597,10 @@ class DoubleRuns:
     def __exit__(self, *exc):
         from tpukzg_torch.kernels import ec
         ec.ec_double = self.orig
+        for key, runs in self.seen.items():
+            finite = [r for r in runs if bool(r[0][2].any().item())]
+            if finite:
+                self.got[key] = finite[0]
         return False
 
 
@@ -902,13 +968,14 @@ def prover_path(torch, ts, say_path):
     say_path(f"proof_batch k={k}", wall, paths["proof_batch"])
     check(got_pfs == pfs, "proofs differ from the fixture's: "
           f"{[i for i in range(k) if got_pfs[i] != pfs[i]]}")
-    wall_p, busy, n_dev, top = device_busy(
+    wall_p, busy, n_dev, top, (freed, gc_s) = device_busy(
         torch, lambda: tpukzg_torch.blob_to_kzg_commitment_batch(blobs, ts))
     if n_dev:
         say(f"[prover commit_batch k={k}] one more, profiled: {n_dev} "
             f"device kernels busy {busy:.4f} s of {wall_p:.3f} s wall "
             f"({100 * busy / wall_p:.1f} %); top device ms "
-            f"{json.dumps(top)}")
+            f"{json.dumps(top)}; the trace's cyclic garbage, {freed} "
+            f"objects, collected after it in {gc_s:.3f} s")
     else:
         say(f"[prover commit_batch k={k}] device busy share not measured: "
             "the profiler trace holds no device events")
@@ -1012,10 +1079,13 @@ def setup_path(torch, ts, triples, paths, say_card):
     path = Setup._cache_path(tmp, 0xDEADBEEF, ref.n)
     try:
         # what generate_insecure runs on a miss, with the seconds of each
-        # step; B2's inputs at step 200 of the 256-step ladder kept
-        ((gen, secs), wall, paths["setup_gen"]), step = capture_ec_add(
-            torch, lambda: run_path(torch, lambda: Setup._generate(
-                0xDEADBEEF, ref.n, ref.device, path)), 2 * ref.n, 200)
+        # step; B2's inputs at its 50th call of the windowed G1 ladder
+        # (a step's add) and B6's first run of 4 doublings on points not
+        # all at infinity kept
+        with DoubleRuns(torch, [(2 * ref.n, 4)]) as dbl:
+            ((gen, secs), wall, paths["setup_gen"]), step = capture_ec_add(
+                torch, lambda: run_path(torch, lambda: Setup._generate(
+                    0xDEADBEEF, ref.n, ref.device, path)), 2 * ref.n, 50)
         files = os.listdir(tmp)
         t0 = time.perf_counter()
         again = Setup.generate_insecure(0xDEADBEEF, ref.n, cache_dir=tmp,
@@ -1035,7 +1105,8 @@ def setup_path(torch, ts, triples, paths, say_card):
              f"generate_insecure then read the file back in {load_s:.3f} s")
     b2 = hold_ec_add(torch, *step, REPS)
     b2.pop("out")
-    say_card(f"[setup_gen n={ref.n}] B2 on step 200 of the G1 ladder "
+    say_card(f"[setup_gen n={ref.n}] B2 on its 50th call of the windowed "
+             "G1 ladder "
              f"{b2['shape']}: bit-exact vs plain, {b2['ms']:.4f} ms on the "
              f"card, {b2['call_ms']:.4f} ms a call (plain "
              f"{b2['plain_ms']:.2f} ms, bound {b2['bound_ms']:.4f} ms)")
@@ -1087,7 +1158,9 @@ def setup_path(torch, ts, triples, paths, say_card):
              f" commit batch k={len(blobs)} {wall_c:.3f} s and proof batch "
              f"{wall_p:.3f} s byte-equal to the fixture's, "
              f"verify_blob_kzg_proof_batch {ok} in {wall_v:.3f} s")
-    return b2
+    check((2 * ref.n, 4) in dbl.got, "no B6 run of 4 doublings on "
+          f"{2 * ref.n} lanes in the windowed G1 ladder")
+    return b2, dbl.got[(2 * ref.n, 4)]
 
 
 def compressed_path(torch, ts, triples, paths, say_card):
@@ -1184,22 +1257,39 @@ def single_verify_path(torch, ts, triples, paths, say_card):
         def one():
             return tpukzg_torch.verify_kzg_proof(cs[0], z_b, y_b, p_b, ts)
 
-        (got, wall, launches), pq = capture_ec_add(
-            torch, lambda: run_path(torch, one), 2, 200)
+        with DoubleRuns(torch, [(2, 4)]) as dbl:
+            (got, wall, launches), pq = capture_ec_add(
+                torch, lambda: run_path(torch, one), 2, 50)
         if i == 0:
             paths["verify_kzg_proof"] = launches
-            step = pq
+            step, run = pq, dbl.got.get((2, 4))
         say_card(f"[verify_kzg_proof n={ts.n}, {name}] {got} in {wall:.3f} s;"
                  f" kernel launches {json.dumps(launches)}")
         check(got is want, f"verify_kzg_proof ({name}) gave {got}")
+    check(run is not None, "no B6 run of 4 doublings on 2 lanes in "
+          "verify_kzg_proof's windowed ladder")
     b2 = hold_ec_add(torch, *step, REPS)
     b2.pop("out")
-    say_card(f"[verify_kzg_proof n={ts.n}] B2 on its 200th call on 2 lanes "
-             f"(the ladder's) {b2['shape']}: bit-exact vs plain, "
+    say_card(f"[verify_kzg_proof n={ts.n}] B2 on its 50th call on 2 lanes "
+             f"(the windowed ladder's) {b2['shape']}: bit-exact vs plain, "
              f"{b2['ms']:.4f} ms on the card, "
              f"{b2['call_ms']:.4f} ms a call (plain "
              f"{b2['plain_ms']:.2f} ms, bound {b2['bound_ms']:.4f} ms)")
-    return b2
+    return b2, run
+
+
+def msm_inputs(torch, setup, log_n: int):
+    """The public MSM's inputs: the SRS's 2n points (monomial, then
+    Lagrange) tiled to 2^log_n, and seeded scalars below 2^254."""
+    N, dev = 1 << log_n, setup.device
+    points = tuple(torch.cat([m, la]).repeat(N // (2 * setup.n), 1)
+                   for m, la in zip(setup.monomial_g1, setup.lagrange_g1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0x5EED20)
+    k = torch.randint(0, 1 << 16, (N, 16), generator=gen, device=dev,
+                      dtype=torch.int32)
+    k[:, 15] &= 0x3FFF
+    return points, k
 
 
 def msm_path(torch, setup, paths, say_card, log_n: int = 20):
@@ -1220,13 +1310,7 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
             + _lagrange_scalars(tau, n, setup.plan.roots_int))
     N = 1 << log_n
     reps = N // (2 * n)
-    points = tuple(torch.cat([m, l]).repeat(reps, 1)
-                   for m, l in zip(setup.monomial_g1, setup.lagrange_g1))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0x5EED20)
-    k = torch.randint(0, 1 << 16, (N, 16), generator=gen, device=dev,
-                      dtype=torch.int32)
-    k[:, 15] &= 0x3FFF
+    points, k = msm_inputs(torch, setup, log_n)
     col = k.reshape(reps, 2 * n, 16).to(torch.int64).sum(0).cpu().tolist()
     s = sum(d * sum(v << (16 * j) for j, v in enumerate(row))
             for d, row in zip(logs, col)) % R_MOD
@@ -1246,7 +1330,9 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
     base = torch.cuda.memory_allocated()
     bucket._launch = rec
     try:
-        out, wall, paths["msm_2^20"] = run_path(torch, lambda: msm(points, k))
+        with gc_clock() as gcs:
+            out, wall, paths["msm_2^20"] = run_path(torch,
+                                                    lambda: msm(points, k))
     finally:
         bucket._launch = orig
     peak = torch.cuda.max_memory_allocated()
@@ -1261,11 +1347,314 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
              f"in {N // POINT_CHUNK} chunks of {POINT_CHUNK} points, window "
              f"c = {default_window(N)}; peak device memory "
              f"{peak / 2**30:.2f} GiB (of it {base / 2**30:.2f} GiB held "
-             f"before); kernel launches {json.dumps(paths['msm_2^20'])}; B3 "
+             f"before); Python's GC in the call: {gcs['passes']} passes, "
+             f"{gcs['seconds']:.3f} s, {gcs['collected']} objects freed; "
+             f"kernel launches "
+             f"{json.dumps(paths['msm_2^20'])}; B3 "
              f"launches by (rows, lanes) and a launch's grid "
              f"{json.dumps(by_shape)}")
     check("row" in cap, "no B3 launch on a chunk's row was captured")
     return cap["row"], by_shape
+
+
+# ---------------------------------------------------------------------------
+# the windowed ladder, the pairing, the generic and batch MSMs, and the
+# multi-GPU paths
+# ---------------------------------------------------------------------------
+
+
+def windowed_path(torch, ts, say_card):
+    """The windowed ladder (what scalar_mul runs on the card) against the
+    256-step ladder in affine form: G1 at (24, 2) (verify_kzg_proof's
+    shape: two SRS points) and (24, 8192) (the setup's: the generator
+    broadcast), scalars seeded with 0, 1 and r - 1 among them; G2 on
+    [1]_2 with tau, r - 1 and 0.  Returns the walls."""
+    from tpukzg_torch.curve.g2 import G2
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM
+    from tpukzg_torch.field.mont import FR
+    from tpukzg_torch.kernels import _build
+    dev = ts.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0x3D)
+    pool = point_pool(torch, ts.setup)
+    walls = {}
+    for lanes, base in ((2, tuple(c[:, :2] for c in pool)),
+                        (2 * ts.n, tuple(c[:, :1] for c in pool))):
+        k = torch.randint(0, 1 << 16, (lanes, 16), generator=gen, device=dev,
+                          dtype=torch.int32)
+        k[..., 15] &= 0x3FFF
+        k[0] = torch.as_tensor(FR.from_int(FR.modulus - 1), device=dev)
+        if lanes > 2:
+            k[1:3] = torch.as_tensor(FR.from_int([0, 1]), device=dev)
+        out = {}
+        for name in ("scalar_mul_windowed", "scalar_mul_ladder"):
+            _build.launches.clear()
+            out[name], wall = timed_once(
+                torch, lambda: getattr(G1_LM, name)(base, k))
+            walls[f"G1 {name} (24, {lanes})"] = dict(
+                ms=round(wall, 3), launches=dict(_build.launches))
+        same = G1_LM.eq(out["scalar_mul_windowed"],
+                        out["scalar_mul_ladder"])
+        check(bool(same.all().item()), f"windowed G1 ladder on {lanes} "
+              f"lanes != the 256-step ladder in {int((~same).sum())} lanes")
+    k2 = torch.as_tensor(FR.from_int([0xDEADBEEF, FR.modulus - 1, 0]),
+                         device=dev)
+    g2 = G2.gen((), dev)
+    out = {}
+    for name in ("scalar_mul_windowed", "scalar_mul_ladder"):
+        out[name], wall = timed_once(torch, lambda: getattr(G2, name)(g2, k2))
+        walls[f"G2 {name} (3,)"] = dict(ms=round(wall, 3))
+    check(same_affine(torch, G2.normalize, out["scalar_mul_windowed"],
+                      out["scalar_mul_ladder"]),
+          "windowed G2 ladder != the 256-step ladder")
+    check(bool(G2.is_inf(tuple(c[2] for c in out["scalar_mul_windowed"]))),
+          "the windowed G2 ladder of 0 is not infinity")
+    say_card("[windowed ladder] equal to the 256-step ladder in affine form "
+             "on G1 (24, 2) and (24, 8192) and on G2; ms (CUDA events, one "
+             f"call) and launches {json.dumps(walls)}")
+    return walls
+
+
+def pairing_path(torch, dev, say_card):
+    """pairing(G1, G2) on the card against golden's value (computed on the
+    host, pure Python), and e([a] P, Q) == e(P, [a] Q) with the windowed
+    ladders making [a] P and [a] Q."""
+    sys.path.insert(0, REPO)
+    import golden.model as gold
+    from tpukzg_torch.curve.g1 import G1
+    from tpukzg_torch.curve.g2 import G2
+    from tpukzg_torch.field.mont import FP, FR
+    from tpukzg_torch.field.tower import FP12
+    from tpukzg_torch.pairing.check import pairing
+    t0 = time.perf_counter()
+    want = gold.pairing(gold.G1_GEN, gold.G2_GEN)
+    host_s = time.perf_counter() - t0
+    p = G1.gen((), dev)
+    q = G2.gen((), dev)
+    e, ms = timed_once(torch, lambda: pairing(p, q))
+    v = FP.to_int(FP.from_mont(e.reshape(-1, 24)))
+    got = [v[2 * j:2 * j + 2] for j in range(6)]
+    flat = [[c.c0, c.c1] for f6 in (want.c0, want.c1)
+            for c in (f6.c0, f6.c1, f6.c2)]
+    check(got == flat, "pairing(G1, G2) on the card differs from golden")
+    a = torch.as_tensor(FR.from_int(0x5EEDA), device=dev)
+    ap = G1.scalar_mul(p, a)
+    aq = G2.scalar_mul(q, a)
+    e1, ms1 = timed_once(torch, lambda: pairing(ap, q))
+    e2, ms2 = timed_once(torch, lambda: pairing(p, aq))
+    check(torch.equal(e1, e2), "e([a] P, Q) != e(P, [a] Q)")
+    check(bool(FP12.eq(pairing(G1.inf((), dev), q),
+                       FP12.one((), dev)).item()),
+          "pairing(infinity, Q) is not one")
+    say_card(f"[pairing] e(G1, G2)^3 on the card equals golden's "
+             f"(golden {host_s:.3f} s on the host); pairing {ms:.1f}, "
+             f"{ms1:.1f}, {ms2:.1f} ms (CUDA events, one call); e([a] P, Q) "
+             "== e(P, [a] Q)")
+    return dict(ms=[ms, ms1, ms2])
+
+
+def g2_msm_path(torch, dev, say_card, n: int = 64):
+    """The generic Pippenger over G2 on the card: points [d_i] Q from the
+    windowed G2 ladder (seeded d), seeded scalars; equal to golden's
+    [sum k_i d_i] Q in affine form."""
+    sys.path.insert(0, REPO)
+    import golden.model as gold
+    import random
+    from tpukzg_torch.curve import g2 as g2m
+    from tpukzg_torch.curve.g2 import G2
+    from tpukzg_torch.field.mont import FR, R_MOD
+    from tpukzg_torch.msm.pippenger import Pippenger
+    rng = random.Random(0x62)
+    ds = [rng.randrange(R_MOD) for _ in range(n)]
+    ks = [rng.randrange(R_MOD) for _ in range(n)]
+    pts = G2.scalar_mul(G2.gen((n,), dev),
+                        torch.as_tensor(FR.from_int(ds), device=dev))
+    out, ms = timed_once(torch, lambda: Pippenger(G2).msm(
+        pts, torch.as_tensor(FR.from_int(ks), device=dev)))
+    s = sum(d * k for d, k in zip(ds, ks)) % R_MOD
+    w = gold.g2_affine(gold.g2_mul(gold.G2_GEN, s))
+    x, y, inf = g2m.point_to_ints(tuple(c.cpu() for c in out))
+    check((x, y) == ((w[0].c0, w[0].c1), (w[1].c0, w[1].c1)) and not inf,
+          f"the G2 MSM of {n} points differs from golden")
+    say_card(f"[G2 msm n={n}] generic Pippenger (tensor code, c = 4) equals "
+             f"golden's [sum k_i d_i] Q in affine form: {ms:.1f} ms (CUDA "
+             "events, one call)")
+    return dict(ms=ms)
+
+
+def msm_batch_path(torch, ts, paths, say_card, k: int = 16):
+    """msm_batch with k seeded scalar rows over the n = 4096 Lagrange SRS
+    points against k calls of msm, in affine form.  Returns the first B3
+    launch on a chunk of rows of n digits."""
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM
+    from tpukzg_torch.kernels import bucket
+    from tpukzg_torch.msm.pippenger_lm import default_window, msm, msm_batch
+    dev, n = ts.device, ts.n
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0xBA7)
+    sc = torch.randint(0, 1 << 16, (k, n, 16), generator=gen, device=dev,
+                       dtype=torch.int32)
+    sc[..., 15] &= 0x3FFF
+    pts = ts.setup.lagrange_g1
+    cap, orig = {}, bucket._launch
+
+    def rec(p, seg):
+        if seg.shape[1] == n:
+            cap.setdefault("rows", (tuple(c.clone() for c in p), seg.clone()))
+        return orig(p, seg)
+
+    bucket._launch = rec
+    try:
+        out, wall, paths["msm_batch"] = run_path(torch,
+                                                 lambda: msm_batch(pts, sc))
+    finally:
+        bucket._launch = orig
+    rows, wall_rows, paths["msm_rows"] = run_path(
+        torch, lambda: [msm(pts, sc[i]) for i in range(k)])
+    want = tuple(torch.stack([r[i] for r in rows]) for i in range(3))
+    same = G1_LM.eq(tuple(c.movedim(-1, 0) for c in out),
+                    tuple(c.movedim(-1, 0) for c in want))
+    check(bool(same.all().item()), f"msm_batch differs from msm in "
+          f"{int((~same).sum())} of {k} rows")
+    say_card(f"[msm_batch k={k} n={n}] equal to {k} calls of msm in affine "
+             f"form: {wall:.3f} s (c = {default_window(n)}; kernel launches "
+             f"{json.dumps(paths['msm_batch'])}) against {wall_rows:.3f} s "
+             f"for the {k} calls ({json.dumps(paths['msm_rows'])})")
+    check("rows" in cap, "no B3 launch on rows of n digits was captured")
+    return cap["rows"], dict(wall=wall, wall_rows=wall_rows)
+
+
+def dist_rank(rank, world, log_n_msm, log_n_ntt, batches):
+    """One rank of the multi-GPU phase (NCCL, the card of its rank): the
+    sharded MSM over 2^log_n_msm points (the SRS tiled, as msm_path),
+    the four-step NTT at 2^log_n_ntt and the sharded batch verify of
+    `batches` [(name, numpy args of Kzg.verify_batch)].  Rank 0 also
+    runs the single-device references.  -> walls, checks and launches
+    (CPU values)."""
+    import torch
+    import tpukzg_torch
+    from tpukzg_torch.curve.g1 import G1
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM
+    from tpukzg_torch.dist import (DistNtt, MeshConfig, ShardedBatchVerifier,
+                                   ShardedMsm)
+    from tpukzg_torch.kernels import _build
+    from tpukzg_torch.msm.pippenger_lm import msm
+    from tpukzg_torch.ntt.ntt import get_plan
+    mesh = MeshConfig().build()
+    dev = mesh.device
+    ts = tpukzg_torch.generate_insecure_setup(0xDEADBEEF, 4096, device=dev)
+    out = dict(rank=rank, world=world, device=str(dev),
+               card=torch.cuda.get_device_name(dev), walls={},
+               launches={}, checks={})
+
+    def timed(name, fn):
+        torch.cuda.synchronize(dev)
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(dev)
+        out["walls"][name] = time.perf_counter() - t0
+        out["launches"][name] = dict(_build.launches)
+        return r
+
+    s = ts.setup
+    points, k = msm_inputs(torch, s, log_n_msm)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0x5EED22)
+    sm = ShardedMsm(G1, mesh=mesh)
+    timed("sharded_msm", lambda: sm.msm(points, k))       # warm-up
+    got = timed("sharded_msm", lambda: sm.msm(points, k))
+    out["msm_affine"] = [int(v) for v in torch.cat(G1.normalize(got)[:2])
+                         .cpu().tolist()]
+    if rank == 0:
+        want = timed("single_msm", lambda: msm(points, k))
+        out["checks"]["sharded_msm == msm"] = bool(G1_LM.eq(
+            tuple(c[:, None] for c in got),
+            tuple(c[:, None] for c in want)).all().item())
+    del points, k
+
+    n = 1 << log_n_ntt
+    dn = timed("dist_ntt_plan", lambda: DistNtt(n, mesh=mesh))
+    out["ntt_split"] = [dn.n1, dn.n2]
+    m = n // world
+    vec = torch.randint(0, 1 << 16, (n, 16), generator=gen, device=dev,
+                        dtype=torch.int32)
+    vec[:, 15] &= 0x3FFF
+    mine = vec[rank * m:(rank + 1) * m]
+    timed("dist_ntt", lambda: dn.ntt(mine))                # warm-up
+    fwd = timed("dist_ntt", lambda: dn.ntt(mine))
+    back = timed("dist_intt", lambda: dn.intt(fwd))
+    plan = get_plan(n)
+    out["checks"]["dist ntt == NttPlan"] = bool(torch.equal(
+        fwd, plan.ntt(vec)[rank * m:(rank + 1) * m]))
+    out["checks"]["dist intt == NttPlan"] = bool(torch.equal(
+        back, plan.intt(plan.ntt(vec))[rank * m:(rank + 1) * m]))
+    out["checks"]["dist intt(ntt) == input"] = bool(torch.equal(back, mine))
+
+    sbv = ShardedBatchVerifier(s, mesh=mesh)
+    out["verdicts"] = {}
+    for i, (name, args) in enumerate(batches):
+        t = tuple(tuple(torch.as_tensor(c, device=dev) for c in a)
+                  if isinstance(a, tuple) else torch.as_tensor(a, device=dev)
+                  for a in args)
+        for _ in range(1 if i else 2):                  # the first: warm-up
+            out["verdicts"][name] = bool(timed(
+                f"sharded_verify {name}", lambda: sbv.verify_batch(*t))
+                .item())
+    return out
+
+
+def verify_args(torch, ts, blobs, cs, pfs):
+    """The arguments of Kzg.verify_batch for one batch of blobs, as the
+    sync path computes them (decompressed C and pi, z, y, the powers of
+    rho), as numpy arrays."""
+    from tpukzg_torch.field.mont import FR
+    from tpukzg_torch.kzg import transcript
+    from tpukzg_torch.kzg.blob import _PendingBatch, fr_ints_from_limbs
+    pb = _PendingBatch(ts.blob, blobs, cs, pfs)
+    y_can = pb._y_dev.cpu()
+    _, rho = transcript.compute_r_powers(cs, pb._zs, fr_ints_from_limbs(
+        y_can), pfs, ts.n)
+    return (tuple(c.cpu().numpy() for c in pb._c_pts), pb._z_can,
+            y_can.numpy(), tuple(c.cpu().numpy() for c in pb._pi_pts),
+            FR.from_int(rho).reshape(len(blobs), 16))
+
+
+def dist_path(torch, ts, batches, say_card, log_n_msm: int = 22,
+              log_n_ntt: int = 18):
+    """The multi-GPU paths through dist.launch at world size = the cards
+    present, NCCL, one card a rank, after this process built the kernels
+    (no rank runs nvcc): ShardedMsm at 2^22 points equal to the
+    single-device msm in affine form, DistNtt at 2^18 equal to NttPlan
+    bit for bit (forward and inverse), ShardedBatchVerifier's verdicts
+    equal to the sync path's."""
+    from tpukzg_torch.dist import launch
+    world = torch.cuda.device_count()
+    args = [(name, verify_args(torch, ts, *b)) for name, b, _ in batches]
+    t0 = time.perf_counter()
+    outs = launch.run(dist_rank, world, "nccl",
+                      args=(log_n_msm, log_n_ntt, args), timeout=600)
+    wall = time.perf_counter() - t0
+    r0 = outs[0]
+    for o in outs:
+        check(o["msm_affine"] == r0["msm_affine"], f"rank {o['rank']}'s "
+              "sharded MSM differs from rank 0's")
+        check(all(o["checks"].values()), f"rank {o['rank']}: "
+              f"{json.dumps(o['checks'])}")
+        check(o["verdicts"] == {name: want for name, _, want in batches},
+              f"rank {o['rank']}: sharded verdicts {o['verdicts']}")
+    check(r0["checks"].get("sharded_msm == msm"),
+          "the sharded MSM differs from the single-device msm")
+    say_card(f"[dist world={world}] NCCL, ranks on "
+             f"{[o['device'] for o in outs]}; the run {wall:.1f} s (process "
+             f"start, setup load and the paths); ShardedMsm 2^{log_n_msm} == "
+             f"msm, DistNtt 2^{log_n_ntt} (n1, n2 = {r0['ntt_split']}) == "
+             f"NttPlan forward and inverse, ShardedBatchVerifier verdicts "
+             f"{json.dumps(r0['verdicts'])} == the sync path's; rank 0 walls "
+             f"(s) {json.dumps({k: round(v, 4) for k, v in r0['walls'].items()})}")
+    say_card(f"[dist world={world}] rank 0 kernel launches "
+             f"{json.dumps(r0['launches'])}")
+    return r0
 
 
 # ---------------------------------------------------------------------------
@@ -1449,14 +1838,15 @@ def main() -> int:
     say(f"[slice k={k_main}] one more verify, counted: {ops} tensor ops "
         "dispatched to the card (kernel launches of the port included) "
         f"[{card}]")
-    wall_p, busy, n_dev, top = device_busy(
+    wall_p, busy, n_dev, top, (freed, gc_s) = device_busy(
         torch, lambda: tpukzg_torch.verify_blob_kzg_proof_batch(
             blobs, cs, pfs, ts))
     if n_dev:
         say(f"[slice k={k_main}] one more verify, profiled: {n_dev} device "
             f"kernels busy {busy:.4f} s of {wall_p:.3f} s wall "
             f"({100 * busy / wall_p:.1f} %; unprofiled wall {wall:.3f} s); "
-            f"top device ms {json.dumps(top)}")
+            f"top device ms {json.dumps(top)}; the trace's cyclic garbage, "
+            f"{freed} objects, collected after it in {gc_s:.3f} s")
     else:
         say(f"[slice k={k_main}] device busy share not measured: the "
             "profiler trace holds no device events")
@@ -1618,15 +2008,15 @@ def main() -> int:
     results["fractree"]["alternatives"] = {k: v for k, v in alt.items()
                                            if k.startswith("fractree")}
 
-    # 8. this slice's paths: setup generation, compressed load, single
+    # 8. the setup paths: setup generation, compressed load, single
     # verify, the 2^20-point MSM (and B3 on one of its chunk's rows)
     def say_card(msg):
         say(f"{msg} [{card}]")
 
     triples = load_triples(4096, 16)
-    b2_gen = setup_path(torch, ts, triples, paths, say_card)
+    b2_gen, run_gen = setup_path(torch, ts, triples, paths, say_card)
     compressed_path(torch, ts, triples, paths, say_card)
-    b2_one = single_verify_path(torch, ts, triples, paths, say_card)
+    b2_one, run_one = single_verify_path(torch, ts, triples, paths, say_card)
     check_b1_launches(paths)
     results["ec_add"]["other_shapes"] = {"setup_gen_g1_ladder": b2_gen,
                                          "verify_kzg_proof_ladder": b2_one}
@@ -1642,24 +2032,79 @@ def main() -> int:
              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
              f"{r['bound_by']}, {r['adds']} adds; device kernels launched "
              f"and their blocks {json.dumps(r['grid'])})")
+    # 9. this slice's paths: the windowed ladder, the pairing, the G2 and
+    # batch MSMs, and the multi-GPU paths
+    windowed_path(torch, ts, say_card)
+    pairing_path(torch, ts.device, say_card)
+    g2_msm_path(torch, ts.device, say_card)
+    (pts, seg), _ = msm_batch_path(torch, ts, paths, say_card)
+    r = check_bucket(torch, pts, seg, REPS)
+    r["check"] = ("affine-equal in every lane of msm_batch's first chunk of "
+                  "rows (k = 16 rows a window), the same limbs on two "
+                  "launches")
+    results["bucket_scan_msm_batch"] = r
+    say_card(f"[B3 bucket scan msm_batch {r['shape']}] ok, affine-equal in "
+             f"every lane, the same limbs twice: {r['ms']:.3f} ms on the "
+             f"card, {r['call_ms']:.3f} ms a call (plain {r['plain_ms']:.1f} "
+             f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+             f"{r['adds']} adds; device kernels launched and their blocks "
+             f"{json.dumps(r['grid'])})")
+    for name, run in (("windowed ladder, verify_kzg_proof's run", run_one),
+                      ("windowed ladder, the setup's G1 run", run_gen)):
+        r = b6[name] = hold_ec_double(torch, *run, REPS)
+        say_double(r, name, card)
+    r0 = dist_path(torch, ts, [
+        ("valid", (blobs, cs, pfs), ok),
+        ("tampered", (blobs, cs, tampered), ok_bad),
+        ("swapped", (blobs, cs, swapped), ok_swap)], say_card)
+    # B5 at the batches DistNtt launched: its split as the ranks built it
+    world, (n1, n2) = r0["world"], r0["ntt_split"]
+    for name, rows, plan_n in (("dist_cols", n2 // world, n1),
+                               ("dist_rows", n1 // world, n2)):
+        x = torch.randint(0, 1 << 16, (rows, plan_n, 16), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        x[..., 15] &= 0x3FFF
+        for inv in (False, True):
+            r = check_ntt(torch, x, get_plan(plan_n), inv, REPS)
+            key = f"{name}{'_inv' if inv else ''}"
+            results["ntt"]["other_shapes"][key] = {f: r[f] for f in (
+                "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+                "bound_by", "shape", "grid")}
+            say_card(f"[B5 ntt {r['shape']} inverse={inv}, DistNtt's "
+                     f"{name[5:]} at world {world}] ok, bit-exact: "
+                     f"{r['ms']:.4f} ms on the card, {r['call_ms']:.4f} ms "
+                     f"a call (plain {r['plain_ms']:.2f} ms, bound "
+                     f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
+    for name in ("sharded_msm", "dist_ntt", "sharded_verify valid"):
+        paths[name.split()[0]] = r0["launches"][name]
     say_card("[B6 ec_double] launches by path "
              f"{json.dumps({p: c.get('ec_double', 0) for p, c in paths.items()})}")
+    say_card("[B2 ec_add] launches by path "
+             f"{json.dumps({p: c.get('ec_add', 0) for p, c in paths.items()})}")
     for path, need in (("setup_gen", ("ec_add", "ec_double", "montmul_fp")),
                        ("from_compressed", ("ec_add", "ec_double",
                                             "montmul_fp")),
                        ("verify_kzg_proof", ("ec_add", "ec_double",
                                              "montmul_fp")),
                        ("msm_2^20", ("bucket_scan", "ec_add", "ec_double")),
-                       ("tables", ("ec_double",))):
+                       ("tables", ("ec_double",)),
+                       ("msm_batch", ("bucket_scan", "ec_add", "ec_double")),
+                       ("sharded_msm", ("bucket_scan", "ec_add",
+                                        "ec_double")),
+                       ("dist_ntt", ("ntt", "montmul_fr")),
+                       ("sharded_verify", ("bucket_scan", "ec_add",
+                                           "ec_double"))):
         for kern in need:
             check(paths[path].get(kern, 0) > 0,
                   f"{kern} was not launched on the {path} path")
 
-    # 9. report
+    # 10. report
     fold = dict(b6["verify fold, Horner run"])
     fold["check"] = ("bit-exact vs plain at every captured run: the verify "
-                     "fold's, the subgroup check's, a table window's; and "
-                     "at t = 1 on 2^16 lanes incl. infinity")
+                     "fold's, the subgroup check's, a table window's, the "
+                     "windowed ladder's runs of 4 (verify_kzg_proof's and "
+                     "the setup's); and at t = 1 on 2^16 lanes incl. "
+                     "infinity")
     fold["other_shapes"] = {name: r for name, r in b6.items()
                             if name != "verify fold, Horner run"}
     fold["other_shapes"]["pool, t = 1"] = dbl_pool
@@ -1700,12 +2145,15 @@ def main() -> int:
                 "src/tpukzg/pallas/ntt.py:99"),
         "bucket_scan_msm": ("src/tpukzg_torch/csrc/bucket.cu",
                             "src/tpukzg/pallas/bucket.py:117"),
+        "bucket_scan_msm_batch": ("src/tpukzg_torch/csrc/bucket.cu",
+                                  "src/tpukzg/pallas/bucket.py:117"),
     }
     # the path whose launches each entry reports; the counter name
     path_of = {"montmul_pow_fr": ("proof_batch", "montmul_pow_fr"),
                "bucket_scan_fixed": ("commit_batch", "bucket_scan"),
                "ntt": ("coeff", "ntt"),
-               "bucket_scan_msm": ("msm_2^20", "bucket_scan")}
+               "bucket_scan_msm": ("msm_2^20", "bucket_scan"),
+               "bucket_scan_msm_batch": ("msm_batch", "bucket_scan")}
     regs = {"montmul_fp": ptxas["montmul.cu"],
             "montmul_fr": ptxas["montmul.cu"],
             "montmul_pow_fp": ptxas["montmul.cu"],
@@ -1714,6 +2162,7 @@ def main() -> int:
             "bucket_scan": ptxas["bucket.cu"],
             "bucket_scan_fixed": ptxas["bucket.cu"],
             "bucket_scan_msm": ptxas["bucket.cu"],
+            "bucket_scan_msm_batch": ptxas["bucket.cu"],
             "fractree": ptxas["fractree.cu"], "ntt": ptxas["ntt.cu"]}
     kernels = []
     for name, (src, repl) in meta.items():
@@ -1748,6 +2197,44 @@ def main() -> int:
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def dist_main() -> int:
+    """`chip_smoke.py --dist`: the multi-GPU phase alone (dist_path) at
+    world size = the cards present, with what it is compared with: the
+    sync path's verdicts on the same three k = 256 batches (valid, one
+    tampered proof, two proofs swapped) and, inside the ranks, the
+    single-device msm and NttPlan.  For a machine with several cards."""
+    import torch
+    if not torch.cuda.is_available():
+        say("FAIL: torch.cuda.is_available() is false; this script needs a "
+            "CUDA card")
+        return 1
+    import tpukzg_torch
+    from tpukzg_torch.kernels import _build
+    from tpukzg_torch.kzg.fixtures import load_triples
+    assert "jax" not in sys.modules and "tpukzg" not in sys.modules
+    card = card_line()
+    say(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
+        f" | {torch.cuda.device_count()} cards")
+    _build.lib()
+    ts = tpukzg_torch.generate_insecure_setup(0xDEADBEEF, 4096)
+    blobs, cs, pfs = load_triples(4096, 16, 256)
+    bad = bytearray(pfs[128])
+    bad[13] ^= 4
+    batches = []
+    for name, proofs in (("valid", pfs),
+                         ("tampered", pfs[:128] + [bytes(bad)] + pfs[129:]),
+                         ("swapped", [pfs[1], pfs[0]] + pfs[2:])):
+        t0 = time.perf_counter()
+        ok = tpukzg_torch.verify_blob_kzg_proof_batch(blobs, cs, proofs, ts)
+        say(f"[sync k=256 {name}] {ok} in {time.perf_counter() - t0:.3f} s")
+        batches.append((name, (blobs, cs, proofs), ok))
+    check([b[2] for b in batches] == [True, False, False],
+          f"sync verdicts {[b[2] for b in batches]}")
+    dist_path(torch, ts, batches, lambda msg: say(f"{msg} [{card}]"))
+    say(json.dumps({"ok": True, "world": torch.cuda.device_count()}))
     return 0
 
 
@@ -1854,6 +2341,8 @@ if __name__ == "__main__":
             rc = bary_main(sys.argv[2])
         elif sys.argv[1:2] == ["--verify"] and len(sys.argv) == 3:
             rc = verify_main(sys.argv[2])
+        elif sys.argv[1:] == ["--dist"]:
+            rc = dist_main()
         else:
             rc = main()
     except Fail as e:

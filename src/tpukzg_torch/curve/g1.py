@@ -1,5 +1,6 @@
-"""G1: E(Fp) y^2 = x^3 + 4 — 48-byte codec, batched decompression and
-the GLV subgroup check (counterpart of ``tpukzg/curve/g1.py``).
+"""G1: E(Fp) y^2 = x^3 + 4 — the trailing-layout curve ``G1``, the
+48-byte codec, batched decompression and the GLV subgroup check
+(counterpart of ``tpukzg/curve/g1.py``).
 
 Host work is bytes only (flags, x < p); the square root, the on-curve
 and the subgroup checks run batched as tensor code on the device.
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from tpukzg_torch.field.mont import FP, I32, P_MOD, upload
+from tpukzg_torch.curve.weierstrass import CurveOps
 from tpukzg_torch.curve.weierstrass_lm import G1_LM
 from tpukzg_torch.utils.config import KzgConfig
 
@@ -19,6 +21,35 @@ G1_Y = 0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC74
 
 GEN_NP = (FP.to_mont_host(G1_X), FP.to_mont_host(G1_Y), FP.one_mont)
 INF_NP = (FP.zero, FP.one_mont, FP.zero)
+
+
+def _lm(p):
+    return tuple(c.movedim(-1, 0) for c in p)
+
+
+def _trailing(p):
+    return tuple(c.movedim(0, -1) for c in p)
+
+
+class G1Ops(CurveOps):
+    """G1 on (..., 24) coords (``tpukzg/curve/g1.py:21``), for the
+    generic Pippenger, the butterfly and the tests.  Its adds and runs of
+    doublings go through the limb-major curve: ec_add and one ec_double
+    launch a run on the card, their plain versions on the CPU (the same
+    formulas, so the same limbs as the tensor formulas)."""
+
+    def add(self, p, q):
+        return _trailing(G1_LM.add(_lm(p), _lm(q)))
+
+    def double(self, p):
+        return self.double_n(p, 1)
+
+    def double_n(self, p, t: int):
+        return _trailing(G1_LM.double_n(_lm(p), t))
+
+
+G1 = G1Ops("G1", FP, b3_mul=lambda x: FP.mul_small(x, 12),
+           gen_affine_np=GEN_NP[:2])
 
 _SIGN_THRESHOLD = (P_MOD - 1) // 2
 

@@ -1,16 +1,20 @@
 """Limb-major complete projective G1 group law (y^2 = x^3 + 4).
 
 Counterpart of ``tpukzg/curve/weierstrass_lm.py`` (and of
-``curve/weierstrass.py:_normalize, _scalar_mul``).  Coordinates are
+``curve/weierstrass.py:_normalize, _scalar_mul*``).  Coordinates are
 (L, *batch) int32 Montgomery limbs.  ``add`` and ``double`` go through
 the ec_add and ec_double kernels on the card (``kernels/ec.py``); over a
-plain field they are the tensor formulas.
+plain field they are the tensor formulas.  ``scalar_mul`` runs the
+windowed ladder on the card (a step: one ec_double launch of w
+doublings, a gather of the digit's table entry, one ec_add launch) and
+the 256-step ladder elsewhere.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpukzg_torch.curve.weierstrass import window_digits
 from tpukzg_torch.field.limb_major import FieldLM, FP_LM, FP_LM_PLAIN
 from tpukzg_torch.kernels import ec as _ec
 from tpukzg_torch.kernels.ec import _bmul
@@ -90,16 +94,29 @@ class CurveLM:
             n = half
         return tuple(c[:, 0] for c in pts)
 
-    def scalar_mul(self, p, k_limbs):
-        """[k] P: k as (..., 16) canonical Fr limbs, P as (L, ...) coords;
-        the batch axes of P and k broadcast together.  The fixed 256-step
-        MSB-first double-and-add with a branchless select (an add every
-        step), as ``curve/weierstrass.py:_scalar_mul``."""
-        dev = p[0].device
+    def _broadcast(self, p, k_limbs):
+        """P's coords (L, *batch) contiguous at the batch of P and k
+        together -> (P, the batch shape, k's batch shape)."""
         L, pb, kb = self.F.L, tuple(p[0].shape[1:]), tuple(k_limbs.shape[:-1])
         batch = torch.broadcast_shapes(kb, pb)
         p = tuple(c.reshape((L,) + (1,) * (len(batch) - len(pb)) + pb)
                   .expand((L,) + batch).contiguous() for c in p)
+        return p, batch, kb
+
+    def scalar_mul(self, p, k_limbs, w: int = 4):
+        """[k] P: k as (..., 16) canonical Fr limbs, P as (L, ...) coords;
+        the batch axes of P and k broadcast together.  The windowed
+        ladder on the card, the 256-step ladder elsewhere (as
+        ``curve/weierstrass.py:_scalar_mul_dispatch``)."""
+        if p[0].device.type == "cuda":
+            return self.scalar_mul_windowed(p, k_limbs, w)
+        return self.scalar_mul_ladder(p, k_limbs)
+
+    def scalar_mul_ladder(self, p, k_limbs):
+        """The fixed 256-step MSB-first double-and-add with a branchless
+        select (an add every step), as ``weierstrass.py:_scalar_mul``."""
+        dev = p[0].device
+        p, batch, kb = self._broadcast(p, k_limbs)
         shifts = torch.arange(16, device=dev, dtype=torch.int32)
         bits = (k_limbs.to(device=dev, dtype=torch.int32)[..., None]
                 >> shifts) & 1
@@ -110,6 +127,31 @@ class CurveLM:
         for i in range(255, -1, -1):
             acc = self.double(acc)
             acc = self.select(bits[i], self.add(acc, p), acc)
+        return acc
+
+    def scalar_mul_windowed(self, p, k_limbs, w: int = 4):
+        """[k] P by the 2^w-window ladder (``weierstrass.py:162-199``):
+        the table [0..2^w-1] P from 2^w - 2 adds; then, most significant
+        digit first, a run of w doublings (one launch), the digit's
+        table entry (one gather) and one add.  A zero scalar gives
+        infinity."""
+        dev = p[0].device
+        L = self.F.L
+        d = window_digits(k_limbs.to(dev), w)             # kb + (S,)
+        p, batch, kb = self._broadcast(p, k_limbs)
+        d = d.movedim(-1, 0).reshape(
+            (d.shape[-1],) + (1,) * (len(batch) - len(kb)) + kb).expand(
+            (d.shape[-1],) + batch)
+        tab = [self.inf(batch, dev), p]
+        for _ in range(2, 1 << w):
+            tab.append(self.add(tab[-1], p))
+        table = torch.stack([torch.stack(t) for t in tab])  # (2^w, 3, L, ..)
+        shape = (1, 3, L) + batch
+        acc = self.inf(batch, dev)
+        for i in range(256 // w - 1, -1, -1):
+            acc = self.double_n(acc, w)
+            idx = d[i].reshape((1, 1, 1) + batch).expand(shape)
+            acc = self.add(acc, tuple(torch.gather(table, 0, idx)[0]))
         return acc
 
     def normalize(self, p):

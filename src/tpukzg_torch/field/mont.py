@@ -166,6 +166,8 @@ def cols(a, b, n_cols: int):
 class FieldParams:
     """One prime field in the 16-bit-limb layout, trailing limb axis."""
 
+    suffix_ndim = 1       # trailing axes of an element (the curve code's)
+
     def __init__(self, name: str, modulus: int, n_limbs: int,
                  plain: bool = False):
         self.name = name
@@ -185,6 +187,7 @@ class FieldParams:
         self.r2 = int_to_limbs((self.R * self.R) % modulus, n_limbs)
         self.one_raw = int_to_limbs(1, n_limbs)
         self.zero = np.zeros(n_limbs, np.int32)
+        self.one_np, self.zero_np = self.one_mont, self.zero
         # R - 1 - b + 1 limb by limb: a + sub_bias - b = a - b + R
         self.sub_bias = np.full(n_limbs, MASK, np.int32)
         self.sub_bias[0] += 1

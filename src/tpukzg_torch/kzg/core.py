@@ -132,8 +132,10 @@ class Kzg:
         lhs = self.verify_lhs(c_point, z_can, y_can, proof_point)
         return self.verify_batch_pair(proof_point, lhs)
 
-    def verify_batch_msm(self, c_points, z_can, y_can, proof_points, rho_can):
-        """-> (pi_agg, lhs): points as (X, Y, Z) tuples of (24,) tensors."""
+    def verify_batch_msm(self, c_points, z_can, y_can, proof_points, rho_can,
+                         c: int | None = None):
+        """-> (pi_agg, lhs): points as (X, Y, Z) tuples of (24,) tensors;
+        c: the MSM's window (None: the default window of 3k + 1)."""
         rho_m = FR.to_mont(rho_can)
         rz = FR.from_mont(FR.mul(rho_m, FR.to_mont(z_can)))
         ry_sum = FR.sum_along(FR.mul(rho_m, FR.to_mont(y_can)), axis=0)
@@ -144,7 +146,7 @@ class Kzg:
         scalars = torch.cat([rho_can, rz, rho_can, neg_ys], 0)
         k = z_can.shape[0]
         pi_agg, lhs = msm_grouped(pts, scalars, groups=(k, 2 * k + 1),
-                                  c=default_window(3 * k + 1))
+                                  c=c or default_window(3 * k + 1))
         return pi_agg, lhs
 
     def verify_batch_pair(self, pi_agg, lhs):

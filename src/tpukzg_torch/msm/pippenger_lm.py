@@ -1,5 +1,5 @@
 """Pippenger MSMs in the limb-major layout (counterpart of
-``tpukzg/msm/pippenger.py:36-58`` and ``msm/pippenger_lm.py:53-275``).
+``tpukzg/msm/pippenger.py:36-58`` and ``msm/pippenger_lm.py``).
 
 Sort-by-digit, then the segmented bucket scan (kernel B3 on the card),
 one gather of each bucket's last lane, the suffix scan over buckets
@@ -8,7 +8,9 @@ then folds its windows by Horner; the fixed-base MSM (commit, open) has
 them folded into a table of [2^(c w)] P_i, so one sorted row of W n keys
 per MSM needs no doublings at all.  The public `msm` cuts a long point
 list into chunks of `POINT_CHUNK` points, runs them as the groups of one
-grouped MSM and adds the partial results.
+grouped MSM and adds the partial results.  `msm_batch` runs k MSMs over
+one shared point list as W k rows of sorted digits and one Horner fold
+over k lanes.
 """
 
 from __future__ import annotations
@@ -74,6 +76,35 @@ def _chunk(n: int, rows: int, budget: int = 1 << 28) -> int:
     return max(1, min(rows, budget // max(per_row, 1)))
 
 
+def _window_rows(pts_flat, rows, offs, c: int, curve: CurveLM):
+    """The window sums of R rows of n digits: each row sorts its digits
+    and scans the points pts_flat[:, offs[r] + perm] (offs None: 0) by
+    bucket, in chunks of rows -> coords (L, R)."""
+    R, n = rows.shape
+    gch = _chunk(n, R)
+    wres = []
+    for r0 in range(0, R, gch):
+        sorted_dg, perm = torch.sort(rows[r0:r0 + gch], dim=1, stable=True)
+        idx = perm if offs is None else perm + offs[r0:r0 + gch, None]
+        pts = tuple(c_[:, idx] for c_ in pts_flat)           # (L, gch, n)
+        scanned = bucket.seg_scan(pts, sorted_dg)
+        buckets = _bucket_totals(curve, scanned, sorted_dg, c)
+        wres.append(_window_sums(curve, buckets))            # (L, gch)
+    return tuple(torch.cat([w[i] for w in wres], -1) for i in range(3))
+
+
+def _horner(wres, c: int, curve: CurveLM):
+    """Window sums, coords (L, W, G) -> coords (L, G): R = [2^c] R + R_w,
+    most significant window first; each run of c doublings is one
+    launch."""
+    W, G = wres[0].shape[1:]
+    acc = curve.inf((G,), wres[0].device)
+    for i in range(W):
+        acc = curve.double_n(acc, c if i else 0)
+        acc = curve.add(acc, tuple(c_[:, W - 1 - i] for c_ in wres))
+    return acc
+
+
 def msm_grouped(points, scalars, groups, c: int, curve: CurveLM = G1_LM):
     """G independent MSMs over consecutive slices of the point axis.
 
@@ -96,25 +127,34 @@ def msm_grouped(points, scalars, groups, c: int, curve: CurveLM = G1_LM):
     scal = torch.stack(scal_g)                               # (G, nmax, 16)
     digits = _digits(scal.reshape(G * nmax, 16), c)          # (W, G*nmax)
     W = digits.shape[0]
-    rows = digits.reshape(W * G, nmax)
     offs = (torch.arange(W * G, device=dev, dtype=torch.int64) % G) * nmax
-    gch = _chunk(nmax, W * G)
-    wres = []
-    for r0 in range(0, W * G, gch):
-        dg = rows[r0:r0 + gch]
-        sorted_dg, perm = torch.sort(dg, dim=1, stable=True)
-        flat_idx = perm + offs[r0:r0 + gch, None]
-        pts = tuple(c_[:, flat_idx] for c_ in pts_flat)      # (L, gch, nmax)
-        scanned = bucket.seg_scan(pts, sorted_dg)
-        buckets = _bucket_totals(curve, scanned, sorted_dg, c)
-        wres.append(_window_sums(curve, buckets))            # (L, gch)
-    wres = tuple(torch.cat([w[i] for w in wres], -1).reshape(-1, W, G)
-                 for i in range(3))                          # (L, W, G)
-    acc = curve.inf((G,), dev)
-    for i in range(W):
-        acc = curve.double_n(acc, c if i else 0)   # one launch a run
-        acc = curve.add(acc, tuple(c_[:, W - 1 - i] for c_ in wres))
+    wres = _window_rows(pts_flat, digits.reshape(W * G, nmax), offs, c,
+                        curve)
+    acc = _horner(tuple(w.reshape(-1, W, G) for w in wres), c, curve)
     return [tuple(c_[:, i] for c_ in acc) for i in range(G)]
+
+
+def msm_batch(points, scalars, c: int | None = None,
+              curve: CurveLM = G1_LM):
+    """k MSMs over one shared point list (``pippenger_lm.py:279-329``):
+    points (X, Y, Z) of (n, 24); scalars (k, n, 16) canonical -> (X, Y,
+    Z) of (k, 24).  The W k rows of n digits (window-major) go through
+    one chunked sort and bucket scan, and one Horner fold runs over the
+    k lanes.  c defaults to MsmConfig's window, else the window of n."""
+    k, n = scalars.shape[:2]
+    if any(p.shape[0] != n for p in points):
+        raise ValueError(f"msm_batch: {n} scalars a row for "
+                         f"{points[0].shape[0]} points")
+    if k == 0:
+        return tuple(p.new_zeros((0, p.shape[1])) for p in points)
+    if c is None:
+        c = MsmConfig.from_env().window or default_window(n)
+    pts = tuple(p.movedim(-1, 0).contiguous() for p in points)   # (L, n)
+    digits = _digits(scalars, c)                                 # (W, k, n)
+    W = digits.shape[0]
+    wres = _window_rows(pts, digits.reshape(W * k, n), None, c, curve)
+    acc = _horner(tuple(w.reshape(-1, W, k) for w in wres), c, curve)
+    return tuple(a.movedim(0, -1) for a in acc)
 
 
 def build_fixed_table(points, c: int, curve: CurveLM = G1_LM):

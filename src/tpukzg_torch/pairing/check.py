@@ -1,6 +1,7 @@
-"""Multi-pairing product check on precomputed lines (counterpart of
-``tpukzg/pairing/check.py:43-71``).  The pairing is cubed (final
-exponent 3 (p^12 - 1) / r), and a G1 input at infinity contributes one.
+"""The pairing and the multi-pairing product check on precomputed lines
+(counterpart of ``tpukzg/pairing/check.py:16-71``).  The pairing is
+cubed (final exponent 3 (p^12 - 1) / r), and a G1 input at infinity
+contributes one.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ import torch
 from tpukzg_torch.curve import g1 as g1m
 from tpukzg_torch.field.tower import FP12
 from tpukzg_torch.pairing.final_exp import final_exp
+from tpukzg_torch.pairing.lines import precompute_lines
 from tpukzg_torch.pairing.miller import miller_loop_lines
 
 
@@ -39,3 +41,11 @@ def pairing_check(pairs_with_lines):
     add_lines))]."""
     e = final_exp(miller_product(pairs_with_lines))
     return FP12.eq(e, FP12.one((), e.device))
+
+
+def pairing(p_point, q_point):
+    """e(P, Q)^3 -> (..., 2, 3, 2, 24) Fp12: the lines of the G2 point Q
+    ((2, 24) coords), the Miller loop at the G1 point P ((..., 24)
+    coords) and the final exponentiation; one where P is at infinity.
+    Equal bit for bit to golden's ``pairing``."""
+    return final_exp(miller_product([(p_point, precompute_lines(q_point))]))

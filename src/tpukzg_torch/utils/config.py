@@ -2,10 +2,11 @@
 (counterpart of ``tpukzg/utils/config.py``).
 
 Only the knobs that mean something on the port are here: the blob degree
-and the subgroup check of deserialized points (`KzgConfig`), and the
-Pippenger window and chunk (`MsmConfig`).  The JAX package's XLA lowering
-knobs (``FieldConfig``, ``ScanConfig``, ``FieldImplConfig``,
-``NttConfig.impl``) have no counterpart here.
+and the subgroup check of deserialized points (`KzgConfig`), the
+Pippenger window and chunk (`MsmConfig`) and the four-step NTT's split
+(`NttConfig`).  The JAX package's XLA lowering knobs (``FieldConfig``,
+``ScanConfig``, ``FieldImplConfig``, ``NttConfig.impl``) have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -34,6 +35,17 @@ class MsmConfig:
         return cls(window=_env("MSM_WINDOW", None),
                    window_chunk=_env("MSM_WINDOW_CHUNK", None),
                    bucket_algo=os.environ.get("TPUKZG_MSM_BUCKET_ALGO", "sort"))
+
+
+@dataclass(frozen=True)
+class NttConfig:
+    """`four_step_rows`: n1 of the distributed NTT's (n1, n2) split
+    (None: 2^floor(log2(n) / 2))."""
+    four_step_rows: int | None = None
+
+    @classmethod
+    def from_env(cls):
+        return cls(four_step_rows=_env("NTT_ROWS", None))
 
 
 @dataclass(frozen=True)

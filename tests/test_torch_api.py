@@ -83,6 +83,10 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np
 import tpukzg_torch as tt
 from tpukzg_torch.utils import checked, config, obs
+from tpukzg_torch import dist
+from tpukzg_torch.dist import launch
+from tpukzg_torch.msm import pippenger
+from tpukzg_torch.pairing.check import pairing
 z = np.load(sys.argv[2])
 ts = tt.generate_insecure_setup(0xDEADBEEF, 16, device="cpu")
 pend = tt.verify_blob_kzg_proof_batch_pipeline(

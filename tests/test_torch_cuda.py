@@ -8,7 +8,9 @@ it also runs where only the port is installed:
 
 Tolerances: montmul and its chain launch, ec_add, ec_double (both
 kernels), the NTT and the fraction-tree numerator exact; the scans affine-equal (the kernel adds in chunks and runs, in
-another order than the plain `loop` scan)."""
+another order than the plain `loop` scan); the windowed ladder, the
+batch MSM and the sharded MSM affine-equal; the distributed NTT
+exact."""
 
 import pytest
 import torch
@@ -318,9 +320,9 @@ def test_g1_ladder_on_card(cuda):
     k[:4] = torch.as_tensor(FR.from_int([0, 1, FR.modulus - 1,
                                          (1 << 255) + 1]), device=cuda)
     before = _build.launches["ec_add"]
-    got = G1_LM.scalar_mul(pool, k)
+    got = G1_LM.scalar_mul_ladder(pool, k)
     assert _build.launches["ec_add"] - before == 256
-    want = G1_LM_PLAIN.scalar_mul(pool, k)
+    want = G1_LM_PLAIN.scalar_mul_ladder(pool, k)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -334,7 +336,7 @@ def test_g2_ladder_and_lines_on_card(cuda):
     cpu, card = _srs16("cpu"), _srs16(cuda)
     k = torch.as_tensor(FR.from_int([0xDEADBEEF, FR.modulus - 1]))
     want = G2.scalar_mul(cpu.g2_gen, k)
-    got = G2.scalar_mul(card.g2_gen, k.to(cuda))
+    got = G2.scalar_mul_ladder(card.g2_gen, k.to(cuda))
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
     both = tuple(torch.stack([a, b]) for a, b in zip(card.g2_gen,
                                                      card.g2_tau))
@@ -659,3 +661,99 @@ def test_no_spill_in_b1_b6_on_card(cuda):
     assert len(seen.get("montmul.cu", [])) >= 4      # 2 kernels x 2 fields
     assert len(seen.get("ec.cu", [])) >= 3
     assert all(v == 0 for vs in seen.values() for v in vs), seen
+
+
+# ---------------------------------------------------------------------------
+# the windowed ladder, the batch MSM and the multi-GPU paths on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_windowed_ladder_on_card(cuda):
+    """`scalar_mul` on the card is the windowed ladder: for 32 lanes 64
+    runs of 4 doublings (one ec_double launch each) and 14 + 64 ec_add
+    launches, equal in affine form to the plain 256-step ladder; G2's
+    windowed ladder equals the CPU ladder in affine form."""
+    from tpukzg_torch.curve.g2 import G2
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM
+    from tpukzg_torch.kernels import _build
+    pool = tuple(torch.from_numpy(c).to(cuda) for c in srs_points())
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    k = torch.randint(0, 1 << 16, (32, 16), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    k[..., 15] &= 0x3FFF
+    k[:4] = torch.as_tensor(FR.from_int([0, 1, FR.modulus - 1,
+                                         (1 << 255) + 1]), device=cuda)
+    before = dict(_build.launches)
+    got = G1_LM.scalar_mul(pool, k)
+    assert _build.launches["ec_double"] - before.get("ec_double", 0) == 64
+    assert _build.launches["ec_add"] - before.get("ec_add", 0) == 14 + 64
+    want = G1_LM_PLAIN.scalar_mul_ladder(pool, k)
+    assert bool(G1_LM_PLAIN.eq(got, want).all())
+    assert bool(G1_LM_PLAIN.is_inf(tuple(c[:, 0] for c in got)))
+    cpu, card = _srs16("cpu"), _srs16(cuda)
+    k2 = torch.as_tensor(FR.from_int([0xDEADBEEF, FR.modulus - 1, 0]))
+    want2 = G2.normalize(G2.scalar_mul(cpu.g2_gen, k2))
+    got2 = G2.normalize(G2.scalar_mul(card.g2_gen, k2.to(cuda)))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got2, want2))
+
+
+@pytest.mark.cuda
+def test_msm_batch_on_card(cuda):
+    """msm_batch over the 32 SRS points, k = 5 seeded rows, through the
+    bucket-scan kernel: equal in affine form to one msm a row on the
+    card and to the same batch on the CPU."""
+    from tpukzg_torch.curve import g1 as g1m
+    from tpukzg_torch.kernels import _build
+    from tpukzg_torch.msm.pippenger_lm import msm, msm_batch
+    pool = tuple(torch.from_numpy(c.T.copy()) for c in srs_points())
+    gen = torch.Generator().manual_seed(8)
+    k = torch.randint(0, 1 << 16, (5, 32, 16), generator=gen,
+                      dtype=torch.int32)
+    k[..., 15] &= 0x3FFF
+    k[2] = 0
+    before = _build.launches["bucket_scan"]
+    got = msm_batch(tuple(c.to(cuda) for c in pool), k.to(cuda))
+    assert _build.launches["bucket_scan"] > before
+    want = msm_batch(pool, k)
+    rows = [msm(tuple(c.to(cuda) for c in pool), k[i].to(cuda))
+            for i in range(5)]
+    got_b = g1m.compress_points(tuple(c.cpu() for c in got))
+    assert got_b == g1m.compress_points(want)
+    assert got_b == [g1m.compress_points(tuple(c.cpu()[None] for c in r))[0]
+                     for r in rows]
+
+
+@pytest.mark.cuda
+def test_dist_world_one_nccl_on_card(cuda, tmp_path):
+    """One rank on NCCL (the card of rank 0): ShardedMsm over the 32 SRS
+    points equals the single-device msm in affine form; DistNtt at n =
+    2^10 (n1 = 16) equals NttPlan bit for bit, forward and back."""
+    import random
+    import torch_dist_cases as cases
+    from tpukzg_torch.curve import g1 as g1m
+    from tpukzg_torch.dist import launch
+    from tpukzg_torch.msm.pippenger_lm import msm
+    from tpukzg_torch.ntt.ntt import get_plan
+    pool = tuple(torch.from_numpy(c.T.copy()) for c in srs_points())
+    aff = [g1m.point_to_ints(tuple(c[i] for c in pool))[:2]
+           for i in range(32)]
+    rng = random.Random(9)
+    ks = [rng.randrange(FR.modulus) for _ in range(32)]
+    want = g1m.point_to_ints(tuple(c.cpu() for c in msm(
+        tuple(c.to(cuda) for c in pool),
+        torch.as_tensor(FR.from_int(ks), device=cuda))))
+    (got,) = launch.run(cases.sharded_msm_case, 1, "nccl",
+                        init_file=str(tmp_path / "msm"),
+                        args=("G1", aff, ks, None, None))
+    assert got == want
+    n = 1 << 10
+    coeffs = [rng.randrange(FR.modulus) for _ in range(n)]
+    ((n1, n2, fwd, back),) = launch.run(
+        cases.dist_ntt_case, 1, "nccl", init_file=str(tmp_path / "ntt"),
+        args=(n, 16, coeffs, None))
+    assert (n1, n2) == (16, 64)
+    vec = torch.as_tensor(FR.to_mont_host(coeffs))
+    assert torch.equal(torch.tensor(fwd, dtype=torch.int32),
+                       get_plan(n).ntt(vec.to(cuda)).cpu())
+    assert torch.equal(torch.tensor(back, dtype=torch.int32), vec)

@@ -19,6 +19,9 @@ Phases, each printed on its own line:
   3. B1 montmul (Fp, Fr; 2^20 lanes), B2 ec_add (2^16 lanes) and B6
      ec_double (2^16 lanes, one doubling; both kernels, one thread a
      point and four) against their plain tensor versions, bit for bit;
+     B1 (Fp, Fr; 256 lanes with R - 1, p - 1, 0, 1 and R mod p in both
+     operands) against the CIOS shadow of utils/checked.py, bit for bit,
+     with the shadow's bounds;
      B1 beside an elementwise PyTorch op with its loads and stores (the
      floor of its access pattern); both B6 kernels timed at 4096 to 131072 lanes (the launcher's
      crossover);
@@ -34,7 +37,11 @@ Phases, each printed on its own line:
      True, as the sync path), stages 1 and 2 under sync debug mode
      "error" but for the y readback, then again without the debug mode
      for the sustained seconds a batch; the chunked entry at chunk 64 (True, and
-     False with one blob of the third chunk tampered); then one more
+     False with one blob of the third chunk tampered); the CLI's bench
+     verb (`python -m tpukzg_torch.cli bench --k 256 --reps 4`) in a child
+     process, its line checked (metric, value > 0, the card's name in the
+     unit) and printed beside the pipeline's own rate, and every kernel
+     of the verify launched in its timed reps; then one more
      k=256 verify with its tensor ops counted, and one under
      torch.profiler for the device's busy share;
   5. B6 ec_double (both kernels) against its plain version on the runs
@@ -401,6 +408,74 @@ def check_montmul(torch, field, lanes: int, gen, reps: int):
                 floor_ms=floor_ms, bound_ms=bms, bound_by=by,
                 shape=[L, lanes],
                 check=f"bit-exact on {lanes} lanes incl. all-0xFFFF, p-1, 0")
+
+
+def check_montmul_shadow(torch, field, gen, lanes: int = 256):
+    """B1 against the CIOS shadow (utils/checked.py: mont_mul<F> of
+    csrc/field.cuh replayed word by word, every site asserted within its
+    width) on `lanes` lanes: canonical random ones, and R - 1 (every limb
+    0xFFFF), p - 1, 0, 1 and R mod p against each other and against
+    random ones.  -> (max abs err, the shadow's bounds)."""
+    from tpukzg_torch.kernels import montmul as mm
+    from tpukzg_torch.utils import checked
+    L = field.L
+    dev = torch.device("cuda")
+    a, b = (torch.randint(0, 1 << 16, (L, lanes), generator=gen, device=dev,
+                          dtype=torch.int32) for _ in range(2))
+    for x in (a, b):
+        x[L - 1] %= int(field.mod_limbs[-1])             # below p
+    stress = [torch.full((L,), 0xFFFF, dtype=torch.int32, device=dev)] + [
+        torch.as_tensor(field.from_int(v), device=dev)
+        for v in (field.modulus - 1, 0, 1, field.R)]
+    n = len(stress)
+    for i, s in enumerate(stress):
+        for j, t in enumerate(stress):
+            a[:, n * i + j], b[:, n * i + j] = s, t
+        a[:, n * n + i] = s
+        b[:, n * n + n + i] = s
+    got = mm.montmul(a, b, field, limb_dim=0).cpu()
+    want, bounds = checked.shadow_montmul_lm(a.cpu(), b.cpu(), field)
+    err = int((got.long() - torch.from_numpy(want.astype("int64"))).abs()
+              .max().item())
+    check(err == 0, f"montmul {field.name}: kernel != CIOS shadow (max err "
+          f"{err})")
+    return err, bounds
+
+
+def bench_phase(torch, k: int, reps: int, verify_launches: dict):
+    """`python -m tpukzg_torch.cli bench --k K --reps R` in a child process
+    on the card -> (its result line, its wall s, the launches of its
+    timed reps, its stderr).  Fails unless it exits 0 with the metric, a
+    value > 0 and the card's name in the unit, no vs_baseline, and every
+    kernel of the k = 256 verify (`verify_launches`) launched in its
+    timed reps."""
+    from tpukzg_torch.bench import METRIC
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(REPO, "src")] + [p for p in env.get(
+            "PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "tpukzg_torch.cli", "bench", "--k", str(k),
+         "--reps", str(reps)], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"bench exited {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    check(lines, f"bench printed nothing: {out.stderr[-3000:]}")
+    line = json.loads(lines[-1])
+    name = torch.cuda.get_device_name(0)
+    check(line.get("metric") == METRIC and line.get("value", 0) > 0
+          and name in line.get("unit", "") and "vs_baseline" not in line,
+          f"bench line {line}")
+    m = re.search(r"kernel launches in the timed reps (\{.*\})", out.stderr)
+    check(m, "bench logged no kernel launches")
+    launches = json.loads(m.group(1))
+    missing = [kern for kern, c in verify_launches.items()
+               if c and not launches.get(kern)]
+    check(not missing, f"bench's timed reps launched no {missing}")
+    return line, wall, launches, out.stderr
 
 
 def check_ec_add(torch, pool, lanes: int, gen, reps: int):
@@ -1704,6 +1779,11 @@ def main() -> int:
             f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms; an "
             f"elementwise op with the same loads and stores "
             f"{r['floor_ms']:.4f} ms) [{card}]")
+        err, bounds = check_montmul_shadow(torch, field, gen)
+        say(f"[B1 montmul {field.name} vs the CIOS shadow] ok, bit-exact on "
+            f"256 lanes incl. R-1, p-1, 0, 1, R mod p in both operands; the "
+            f"shadow's largest value at each site (every one within its "
+            f"width) {json.dumps({k: hex(v) for k, v in bounds.items()})}")
 
     setup_t0 = time.perf_counter()
     ts = tpukzg_torch.generate_insecure_setup(0xDEADBEEF, 4096)
@@ -1833,6 +1913,20 @@ def main() -> int:
         f"s, blob {bad_i} tampered (chunk 3) {chunk_ok[1]} in "
         f"{chunk_walls[1]:.3f} s [{card}]")
     check(chunk_ok == [True, False], f"chunked verdicts {chunk_ok}")
+    # 4c. the CLI's bench verb, in its own process (bench.py's shape but
+    # four reps): its line beside the pipeline phase's own rate
+    line, bench_wall, bench_launches, log = bench_phase(torch, k_main, 4,
+                                                        launches)
+    steps = re.search(r"block_times=(\[.*?\]) sustained=(\S+)", log)
+    say(f"[bench] python -m tpukzg_torch.cli bench --k {k_main} --reps 4: "
+        f"{json.dumps(line)} in {bench_wall:.1f} s; its step times "
+        f"{steps.group(1) if steps else '?'} sustained "
+        f"{steps.group(2) if steps else '?'} a batch; launches in its timed "
+        f"reps {json.dumps(bench_launches)} [{card}]")
+    say(f"[bench] beside it, the pipeline phase above: "
+        f"{k_main / (pipe_wall / len(batches)):.2f} verifications/s (k / "
+        f"sustained s; compared, not checked: the host's spread is up to "
+        f"2x) against the bench's {line['value']:.2f} [{card}]")
     ops = count_dispatch(torch, lambda: tpukzg_torch.verify_blob_kzg_proof_batch(
         blobs, cs, pfs, ts))
     say(f"[slice k={k_main}] one more verify, counted: {ops} tensor ops "

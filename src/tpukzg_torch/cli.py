@@ -4,10 +4,9 @@ names another device (``--device cpu`` runs the plain tensor versions).
 
   gen-setup  --tau T --n N --out FILE     write an insecure dev SRS (.npz)
   selftest   [--n N]                      commit, prove, verify round trip
+  bench      [--n N --k K --reps R]       headline benchmark JSON line
+                                          (``tpukzg_torch/bench.py``)
   verify     --setup FILE --blob FILE --commitment HEX --proof HEX
-
-There is no ``bench`` command yet: the port's benchmark harness is still
-to come; ``chip_smoke.py`` drives and times every path meanwhile.
 """
 
 from __future__ import annotations
@@ -48,6 +47,12 @@ def _cmd_selftest(args):
     print(f"selftest OK (n={n}, {ts.device}, {time.time() - t0:.1f}s)")
 
 
+def _cmd_bench(args):
+    from tpukzg_torch import bench
+
+    bench.main(n=args.n, k=args.k, reps=args.reps, device=args.device)
+
+
 def _cmd_verify(args):
     import tpukzg_torch as tt
 
@@ -61,9 +66,7 @@ def _cmd_verify(args):
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(
-        prog="tpukzg_torch",
-        epilog="No bench command yet: the benchmark harness is to come.")
+    p = argparse.ArgumentParser(prog="tpukzg_torch")
     common = argparse.ArgumentParser(add_help=False)
     common.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
@@ -81,6 +84,15 @@ def main(argv=None):
                        help="commit, prove and verify 2 blobs")
     s.add_argument("--n", type=int, default=16)
     s.set_defaults(fn=_cmd_selftest)
+
+    b = sub.add_parser("bench", parents=[common],
+                       help="headline benchmark: one JSON line of "
+                            "verifications/s (--k 256 --reps 10 is "
+                            "bench.py's shape)")
+    b.add_argument("--n", type=int, default=4096)
+    b.add_argument("--k", type=int, default=64)
+    b.add_argument("--reps", type=int, default=3)
+    b.set_defaults(fn=_cmd_bench)
 
     v = sub.add_parser("verify", parents=[common],
                        help="verify one blob proof")

@@ -27,12 +27,15 @@ def gen_blobs(n: int, d: int, seed: int) -> list[bytes]:
     return [b[i].tobytes() for i in range(d)]
 
 
+def fixture_path(n: int, distinct: int) -> str:
+    return os.path.join(_REPO, "bench", "fixtures",
+                        f"triples_n{n}_d{distinct}.npz")
+
+
 def load_triples(n: int = 4096, distinct: int = 16, k: int | None = None):
     """-> (blobs, commitments, proofs), k entries cycling over the
     `distinct` fixture triples."""
-    path = os.path.join(_REPO, "bench", "fixtures",
-                        f"triples_n{n}_d{distinct}.npz")
-    with np.load(path) as z:
+    with np.load(fixture_path(n, distinct)) as z:
         seed = int(z["seed"])
         cs = [z["commitments"][i].tobytes() for i in range(distinct)]
         pfs = [z["proofs"][i].tobytes() for i in range(distinct)]

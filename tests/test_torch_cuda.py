@@ -6,12 +6,14 @@ it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
 
-Tolerances: montmul and its chain launch, ec_add, ec_double (both
+Tolerances: montmul (against its plain version and against the CIOS
+shadow of utils/checked.py) and its chain launch, ec_add, ec_double (both
 kernels), the NTT and the fraction-tree numerator exact; the scans affine-equal (the kernel adds in chunks and runs, in
 another order than the plain `loop` scan); the windowed ladder, the
 batch MSM and the sharded MSM affine-equal; the distributed NTT
 exact."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,6 +21,7 @@ from tpukzg_torch.field.mont import FP, FR, FP_PLAIN, FR_PLAIN
 from tpukzg_torch.field.limb_major import FP_LM_PLAIN
 from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
 from tpukzg_torch.kernels import bucket, ec, fractree, montmul, ntt
+from tpukzg_torch.utils import checked
 
 from torch_cases import (SRS16, ec_inputs, long_row_scan_inputs,
                          ntt_inputs, operands, scan_inputs, srs_points)
@@ -43,6 +46,26 @@ def test_montmul_kernel_on_card(cuda, fields):
     a, b = (torch.from_numpy(x).to(cuda) for x in operands(T, 12, 4096))
     got = montmul.montmul(a, b, T, limb_dim=0)
     assert torch.equal(got, montmul.montmul_plain(a, b, TP, limb_dim=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [FP, FR], ids=["fp", "fr"])
+def test_montmul_kernel_against_cios_shadow_on_card(cuda, field):
+    """B1 against the replay of mont_mul<F> (utils/checked.py) on 256
+    lanes with R - 1, p - 1, 0, 1 and R mod p in both operands: bit for
+    bit, and every site of the shadow within its width."""
+    a, b = operands(field, 13, 256)
+    stress = [a[:, 0].copy(), a[:, 1].copy(), a[:, 2].copy(),
+              field.from_int(1), field.from_int(field.R)]
+    for i, s in enumerate(stress):
+        a[:, i], b[:, i], b[:, 5 + i] = s, stress[-1 - i], s
+    got = montmul.montmul(torch.from_numpy(a).to(cuda),
+                          torch.from_numpy(b).to(cuda), field, limb_dim=0)
+    want, bounds = checked.shadow_montmul_lm(a, b, field)
+    assert np.array_equal(got.cpu().numpy().astype(np.int64),
+                          want.astype(np.int64))
+    assert bounds["s"] < 1 << 64 and bounds["c"] < 1 << 32
+    assert bounds["t_top"] <= 1 and bounds["top_sum"] < 1 << 32
 
 
 @pytest.mark.cuda

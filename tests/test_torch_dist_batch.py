@@ -57,9 +57,10 @@ def test_sharded_batch_verifier(tmp_path):
     cs, zs, ys, pis, rhos = valid
     bad_ys = [ys[0], (ys[1] + 1) % gold.R] + ys[2:]
     tampered = (cs, zs, bad_ys, pis, rhos)
-    out = launch.run(cases.batch_verify_case, 2, "gloo",
+    out = launch.run(cases.on_one_thread, 2, "gloo",
                      init_file=str(tmp_path / "rendezvous"),
-                     args=(n, valid, [valid, tampered]), timeout=120)
+                     args=(cases.batch_verify_case, n, valid,
+                           [valid, tampered]), timeout=120)
     assert out[0] == out[1]
     pi_ints, lhs_ints, verdicts = out[0]
     want_pi, want_lhs = _aggregates(cs_g, zs, ys, pis_g, rhos)

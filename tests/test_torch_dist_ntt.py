@@ -23,9 +23,9 @@ N_NTT = 64
 
 
 def run(fn, world, tmp_path, *args):
-    return launch.run(fn, world, "gloo",
+    return launch.run(cases.on_one_thread, world, "gloo",
                       init_file=str(tmp_path / f"rendezvous_{world}"),
-                      args=args, timeout=120)
+                      args=(fn, *args), timeout=120)
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,15 @@ from tpukzg_torch.curve.g2 import G2
 from tpukzg_torch.field.mont import FP, FR
 
 
+def on_one_thread(rank, world, case, *args):
+    """case(rank, world, *args) on one intra-op thread.  The launcher
+    gives each gloo rank its share of the host's cores, which
+    oversubscribes the host when other test processes (pytest-xdist
+    workers) run beside the ranks; the cases' tensors are small."""
+    torch.set_num_threads(1)
+    return case(rank, world, *args)
+
+
 def g1_points(affine, device):
     """[(x, y)] affine ints -> (X, Y, Z) of (n, 24) Montgomery."""
     n = len(affine)

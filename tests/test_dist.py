@@ -52,8 +52,6 @@ def test_dist_ntt_exact(rng):
     assert [FR.to_int(r) for r in back] == coeffs
 
 
-@pytest.mark.slow
-@pytest.mark.time_limit(1800)  # its compiles took 646 s cold beside 5 workers
 def test_dryrun_multichip_entry():
     import __graft_entry__
     __graft_entry__.dryrun_multichip(8)

@@ -26,7 +26,6 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.slow
 def test_chunked_retry_recovers_from_transient_failure(monkeypatch):
     import tpukzg
     from tpukzg.kzg.blob import BlobKzg

@@ -116,7 +116,6 @@ def test_setup_save_load_roundtrip(ts, tmp_path):
         assert np.array_equal(a, b)
 
 
-@pytest.mark.slow
 def test_batched_prove_matches_single(case, ts):
     """blob_to_kzg_commitment_batch / compute_blob_kzg_proof_batch (one
     shared-points MSM program) must be byte-identical to the per-blob

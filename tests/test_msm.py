@@ -90,8 +90,7 @@ def test_pippenger_lm_edge_cases(msm_case, rng):
     assert got == expect
 
 
-@pytest.mark.parametrize("impl", ["loop",
-                                  pytest.param("assoc", marks=pytest.mark.slow)])
+@pytest.mark.parametrize("impl", ["loop", "assoc"])
 def test_scan_impls_bit_exact(msm_case, impl, monkeypatch):
     """Both EC-scan lowerings (msm/scan.py) produce identical MSMs."""
     monkeypatch.setenv("TPUKZG_SCAN_IMPL", impl)
@@ -136,11 +135,7 @@ def _gold_g2_msm(points, scalars):
     return acc
 
 
-@pytest.mark.parametrize("impl", [
-    "loop", pytest.param("assoc", marks=pytest.mark.slow),
-    # its XLA:CPU compile ran for over 28 minutes at 18 GB
-    pytest.param("pallas", marks=[pytest.mark.slow,
-                                  pytest.mark.time_limit(3600)])])
+@pytest.mark.parametrize("impl", ["loop", "assoc", "pallas"])
 def test_scan_impls_lm_full_msm(msm_case, impl, monkeypatch):
     """Every EC-scan lowering — including the Pallas kernel (interpret
     mode on CPU, compiled on TPU) — drives a FULL limb-major MSM to the

@@ -30,7 +30,6 @@ def ts4096():
     return tpukzg.generate_insecure_setup(TAU, N)
 
 
-@pytest.mark.slow
 def test_commit_fixed_table_n4096_matches_golden(ts4096, rng):
     blob_ints = [rng.randrange(gold.R) for _ in range(N)]
     blob = b"".join(v.to_bytes(32, "big") for v in blob_ints)

@@ -1,7 +1,9 @@
 """The per-test time limit (tests/time_limit.py) on small inner test
 files, each run by a pytest of its own in a subprocess, so that the
-failures they provoke stay out of this run."""
+failures they provoke stay out of this run; and the marks that the
+repo-root conftest.py gives tests by node id."""
 
+import importlib.util
 import os
 import re
 import subprocess
@@ -12,7 +14,8 @@ import xml.etree.ElementTree as ET
 import pytest
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
-INI = os.path.join(os.path.dirname(TESTS), "pytest.ini")
+REPO = os.path.dirname(TESTS)
+INI = os.path.join(REPO, "pytest.ini")
 
 INNER = '''
 import threading
@@ -171,3 +174,42 @@ def test_alarm_that_cannot_land_ends_the_process(tmp_path):
     assert "Timeout (0:00:02)!" in proc.stderr
     assert "in test_blocks_the_alarm" in proc.stderr
     assert seconds < 60
+
+
+def _root_conftest():
+    spec = importlib.util.spec_from_file_location(
+        "root_conftest", os.path.join(REPO, "conftest.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+ROOT = _root_conftest()
+MARKED = sorted(set(ROOT.SLOW) | set(ROOT.LIMITS))
+
+
+@pytest.fixture(scope="module")
+def collected():
+    """The node ids that the repo's pytest collects from the files of
+    MARKED under `-m slow` and under `-m "not slow"`."""
+    files = sorted({nodeid.split("::")[0] for nodeid in MARKED})
+
+    def ids(expression):
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", "--collect-only", "-q",
+             "-p", "no:cacheprovider", "-m", expression, *files],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        return {line for line in proc.stdout.splitlines() if "::" in line}
+
+    return ids("slow"), ids("not slow")
+
+
+@pytest.mark.parametrize("nodeid", MARKED)
+def test_root_conftest_marks_a_collected_test(nodeid, collected):
+    """Each node id of the root conftest's tables names a test that is
+    collected, and is `slow` exactly when SLOW lists it: a renamed test
+    would otherwise lose its mark unseen."""
+    slow, default = collected
+    assert nodeid in slow | default
+    assert (nodeid in slow) == (nodeid in ROOT.SLOW)

@@ -54,7 +54,6 @@ def test_ntt_kat(kat):
     assert got == [int(v, 16) for v in kat["ntt"]["evals"]]
 
 
-@pytest.mark.slow
 def test_kzg_blob_kat(kat, ts):
     import tpukzg
     blob = bytes.fromhex(kat["kzg"]["blob"])

@@ -1,4 +1,4 @@
-"""A time limit for every test, loaded by tests/conftest.py.
+"""A time limit for every test, loaded by the repo-root conftest.py.
 
 Each phase of a test (setup, call, teardown) may take DEFAULT_SECONDS;
 ``@pytest.mark.time_limit(seconds)`` (registered in pytest.ini) gives one

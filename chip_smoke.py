@@ -49,9 +49,10 @@ Phases, each printed on its own line:
      check's 512 lanes x 32); B1's chain launch against the plain chain
      on the verify's three chains (the decompress square root on 512
      lanes, the pairing's and the final exponentiation's Fp
-     inversions); then B3 bucket scan and B4 fraction tree on the very
-     inputs the k=256 run gave them (one z moved in-domain); B3 launched
-     twice must give the same limbs;
+     inversions); then B3 bucket scan, the window sum and B4 fraction
+     tree on the very inputs the k=256 run gave them (one z moved
+     in-domain); B3 and the window sum launched twice must give the same
+     limbs;
   6. the prover path on the 16 fixture blobs (launch counts taken around
      each step alone, B1's checked against B1_LAUNCHES): the fixed-base
      tables (B6 held against its plain version on one window's run of
@@ -67,8 +68,9 @@ Phases, each printed on its own line:
      (16, 4096) inputs, both directions, and at n = 2^18 (one seeded
      polynomial, at most 3 passes); B4 on the proof batch's own
      (16, 4096) input (one z moved in-domain); B3 on one chunk the
-     fixed-base MSM launched (rows of 98,304 lanes) and on one of its
-     suffix scans, each twice; every B3, B4 and B5 check reports the grid
+     fixed-base MSM launched (rows of 98,304 lanes), and the window sum
+     on its buckets (against the suffix scan then the tree sum), each
+     twice; every B3, B4, B5 and window-sum check reports the grid
      the launcher ran, and the fixed-base chunk's local pass, B5's first
      pass at (16, 4096) and B4 at k = 16 must each run at least one block
      an SM; then B5 and B4 timed at other splits and grids than the
@@ -83,8 +85,8 @@ Phases, each printed on its own line:
      inputs refused; verify_kzg_proof True for an out-of-domain and an
      in-domain z, False for a wrong y and a wrong proof; the public MSM
      over 2^20 points (8 chunks of 2^17) equal to [sum k_i d_i] G1, and
-     B3 on one row of a chunk against its plain version; B6's launches on
-     every path;
+     B3 on one row of a chunk and the window sum on its first buckets
+     against their plain versions; B6's launches on every path;
   9. the windowed ladder (what scalar_mul runs on the card) against the
      256-step ladder in affine form on G1 (24, 2) and (24, 8192) and on
      G2 (the setup generation and verify_kzg_proof above already ran it:
@@ -93,7 +95,8 @@ Phases, each printed on its own line:
      e([a] P, Q) == e(P, [a] Q); the generic Pippenger over 64 G2 points
      equal to golden; msm_batch with k = 16 rows over the n = 4096
      Lagrange points equal to 16 calls of msm, and B3 on its first chunk
-     of rows against its plain version; then the multi-GPU paths
+     of rows and the window sum on its first buckets against their plain
+     versions; then the multi-GPU paths
      through tpukzg_torch.dist.launch at world size = the cards present
      (NCCL, one card a rank, the kernels built by this process first):
      ShardedMsm over 2^22 points equal to the single-device msm,
@@ -814,6 +817,42 @@ def check_bucket(torch, pts, seg, reps: int):
                 device_kernels=len(grid), grid=grid)
 
 
+def check_window(torch, buckets, reps: int):
+    """The window-sum kernel against its plain route (the suffix scan,
+    then the tree sum) in affine form, and twice to the same limbs; its
+    time on the card and a call; bound: two adds a bucket."""
+    from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
+    from tpukzg_torch.kernels import bucket
+    got = bucket._launch_window(buckets)
+    grid = dict(bucket.last_grid)
+    again = bucket._launch_window(buckets)
+    _, g, nb = buckets[0].shape
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"window sum: two launches on {g} x {nb} buckets differ")
+    want, pms = timed_once(torch, lambda: bucket.window_sum_plain(buckets))
+    err = max(int((a.long() - b.long()).abs().max().item())
+              for a, b in zip(got, want))
+    same = G1_LM_PLAIN.eq(got, want)
+    check(bool(same.all().item()), "window sum: kernel != plain after "
+          f"normalisation in {int((~same).sum().item())} of {g} rows")
+    bms, by = bound_ms(3 * 24 * 4 * g * nb, 2 * g * nb * EC_ADD_OPS)
+    return dict(max_abs_err=err,
+                ms=graph_ms(torch, lambda: bucket._launch_window(buckets),
+                            reps),
+                call_ms=cuda_ms(torch, lambda: bucket._launch_window(buckets),
+                                reps),
+                plain_ms=pms, bound_ms=bms, bound_by=by, shape=[24, g, nb],
+                grid=grid)
+
+
+def say_window(r, name):
+    say(f"[window sum {r['shape']}, {name}] ok, affine-equal to the plain "
+        f"route, the same limbs twice: {r['ms']:.3f} ms on the card, "
+        f"{r['call_ms']:.3f} ms a call (plain {r['plain_ms']:.1f} ms, bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']}; blocks "
+        f"{json.dumps(r['grid'])})")
+
+
 def check_fractree(torch, evals, z, roots, plan, reps: int):
     from tpukzg_torch.field.mont import FR_PLAIN
     from tpukzg_torch.kernels import fractree
@@ -983,7 +1022,7 @@ def run_path(torch, fn):
 
 def prover_path(torch, ts, say_path):
     """Steps 1-3 of the prover slice on the 16 fixture blobs.  Returns
-    (launches by path, captured fixed-base B3 chunk and suffix scan and
+    (launches by path, captured fixed-base B3 chunk and window sum and
     the proof batch's B4 input, NTT inputs)."""
     import tpukzg_torch
     from tpukzg_torch.curve import g1 as g1m
@@ -1008,20 +1047,23 @@ def prover_path(torch, ts, say_path):
     captured["table_run"] = dbl.got[run]
     orig = bucket._launch
 
+    orig_ws = bucket._launch_window
+
     def rec(pts, seg):
-        if seg.shape[1] > ts.n:            # W n lanes, not 2^c - 1
-            captured.setdefault("fixed", (pts, seg))
-        else:                              # the suffix scan of the buckets
-            captured.setdefault("suffix", (pts, seg))
+        captured.setdefault("fixed", (pts, seg))
         return orig(pts, seg)
 
-    bucket._launch = rec
+    def rec_ws(buckets, s=None):
+        captured.setdefault("window", buckets)
+        return orig_ws(buckets, s)
+
+    bucket._launch, bucket._launch_window = rec, rec_ws
     try:
         got_cs, wall, paths["commit_batch"] = run_path(
             torch, lambda: tpukzg_torch.blob_to_kzg_commitment_batch(blobs,
                                                                      ts))
     finally:
-        bucket._launch = orig
+        bucket._launch, bucket._launch_window = orig, orig_ws
     say_path(f"commit_batch k={k}", wall, paths["commit_batch"])
     check(got_cs == cs, "commitments differ from the fixture's: "
           f"{[i for i in range(k) if got_cs[i] != cs[i]]}")
@@ -1372,7 +1414,7 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
     logs tau^i and L_i(tau), tau = 0xDEADBEEF) tiled, seeded scalars below
     2^254.  Check: the result equals [sum k_i d_i mod r] G1 (one ladder).
     Returns the first B3 launch on a row of POINT_CHUNK lanes (its input,
-    one row) and the launches' grids."""
+    one row), the first window sum's buckets and the launches' grids."""
     from tpukzg_torch.curve import g1 as g1m
     from tpukzg_torch.curve.weierstrass_lm import G1_LM
     from tpukzg_torch.field.mont import FR, R_MOD
@@ -1390,7 +1432,7 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
     s = sum(d * sum(v << (16 * j) for j, v in enumerate(row))
             for d, row in zip(logs, col)) % R_MOD
     grids, cap = [], {}
-    orig = bucket._launch
+    orig, orig_ws = bucket._launch, bucket._launch_window
 
     def rec(pts, seg):
         out = orig(pts, seg)
@@ -1400,16 +1442,21 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
                                    seg[:1].contiguous()))
         return out
 
+    def rec_ws(buckets, s=None):
+        if "window" not in cap:
+            cap["window"] = tuple(c.clone() for c in buckets)
+        return orig_ws(buckets, s)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    bucket._launch = rec
+    bucket._launch, bucket._launch_window = rec, rec_ws
     try:
         with gc_clock() as gcs:
             out, wall, paths["msm_2^20"] = run_path(torch,
                                                     lambda: msm(points, k))
     finally:
-        bucket._launch = orig
+        bucket._launch, bucket._launch_window = orig, orig_ws
     peak = torch.cuda.max_memory_allocated()
     g = tuple(torch.as_tensor(c, device=dev)[:, None] for c in g1m.GEN_NP)
     want = G1_LM.scalar_mul(g, torch.as_tensor(FR.from_int([s]), device=dev))
@@ -1429,7 +1476,8 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
              f"launches by (rows, lanes) and a launch's grid "
              f"{json.dumps(by_shape)}")
     check("row" in cap, "no B3 launch on a chunk's row was captured")
-    return cap["row"], by_shape
+    check("window" in cap, "no window sum was captured in the MSM")
+    return cap["row"], cap["window"], by_shape
 
 
 # ---------------------------------------------------------------------------
@@ -1560,7 +1608,8 @@ def g2_msm_path(torch, dev, say_card, n: int = 64):
 def msm_batch_path(torch, ts, paths, say_card, k: int = 16):
     """msm_batch with k seeded scalar rows over the n = 4096 Lagrange SRS
     points against k calls of msm, in affine form.  Returns the first B3
-    launch on a chunk of rows of n digits."""
+    launch on a chunk of rows of n digits and the first window sum's
+    buckets."""
     from tpukzg_torch.curve.weierstrass_lm import G1_LM
     from tpukzg_torch.kernels import bucket
     from tpukzg_torch.msm.pippenger_lm import default_window, msm, msm_batch
@@ -1571,19 +1620,24 @@ def msm_batch_path(torch, ts, paths, say_card, k: int = 16):
                        dtype=torch.int32)
     sc[..., 15] &= 0x3FFF
     pts = ts.setup.lagrange_g1
-    cap, orig = {}, bucket._launch
+    cap, orig, orig_ws = {}, bucket._launch, bucket._launch_window
 
     def rec(p, seg):
         if seg.shape[1] == n:
             cap.setdefault("rows", (tuple(c.clone() for c in p), seg.clone()))
         return orig(p, seg)
 
-    bucket._launch = rec
+    def rec_ws(buckets, s=None):
+        if "window" not in cap:
+            cap["window"] = tuple(c.clone() for c in buckets)
+        return orig_ws(buckets, s)
+
+    bucket._launch, bucket._launch_window = rec, rec_ws
     try:
         out, wall, paths["msm_batch"] = run_path(torch,
                                                  lambda: msm_batch(pts, sc))
     finally:
-        bucket._launch = orig
+        bucket._launch, bucket._launch_window = orig, orig_ws
     rows, wall_rows, paths["msm_rows"] = run_path(
         torch, lambda: [msm(pts, sc[i]) for i in range(k)])
     want = tuple(torch.stack([r[i] for r in rows]) for i in range(3))
@@ -1596,7 +1650,8 @@ def msm_batch_path(torch, ts, paths, say_card, k: int = 16):
              f"{json.dumps(paths['msm_batch'])}) against {wall_rows:.3f} s "
              f"for the {k} calls ({json.dumps(paths['msm_rows'])})")
     check("rows" in cap, "no B3 launch on rows of n digits was captured")
-    return cap["rows"], dict(wall=wall, wall_rows=wall_rows)
+    check("window" in cap, "no window sum was captured in msm_batch")
+    return cap["rows"], cap["window"], dict(wall=wall, wall_rows=wall_rows)
 
 
 def dist_rank(rank, world, log_n_msm, log_n_ntt, batches):
@@ -1817,10 +1872,15 @@ def main() -> int:
 
     captured = {}
     orig_launch, orig_ft = bucket._launch, fractree.fractree_partials
+    orig_ws = bucket._launch_window
 
     def rec_launch(pts, seg):
         captured.setdefault(("bucket", tuple(seg.shape)), (pts, seg))
         return orig_launch(pts, seg)
+
+    def rec_ws(buckets, s=None):
+        captured.setdefault("window", buckets)
+        return orig_ws(buckets, s)
 
     def rec_ft(evals, z, roots):
         captured.setdefault("fractree", (evals, z, roots))
@@ -1831,6 +1891,7 @@ def main() -> int:
     # points (32 doublings)
     fold_run, x_run = (2, 8), (2 * k_main, 32)
     bucket._launch, fractree.fractree_partials = rec_launch, rec_ft
+    bucket._launch_window = rec_ws
     try:
         with DoubleRuns(torch, [fold_run, x_run]) as dbl, \
                 PowRuns(torch) as pw:
@@ -1843,6 +1904,7 @@ def main() -> int:
             launches = dict(_build.launches)
     finally:
         bucket._launch, fractree.fractree_partials = orig_launch, orig_ft
+        bucket._launch_window = orig_ws
     phases = dict(ts.blob.last_phases)
     say(f"[slice k={k_main}] {ok} in {wall:.3f} s = "
         f"{k_main / wall:.2f} verifications/s; phases (s) "
@@ -1966,8 +2028,8 @@ def main() -> int:
         check(hit, f"no chain launch of {name} in the k = {k_main} verify")
         r = chains[name] = hold_pow(torch, hit[0][0], e, hit[0][1], REPS)
         say_pow(r, name, card)
-    seg_key = [key for key in captured if key != "fractree"]
-    check(len(seg_key) == 2, f"bucket scan inputs captured: {seg_key}")
+    seg_key = [key for key in captured if key not in ("fractree", "window")]
+    check(len(seg_key) == 1, f"bucket scan inputs captured: {seg_key}")
     parts = []
     for key in sorted(seg_key, key=lambda s: -s[1][1]):
         pts, seg = captured[key]
@@ -1990,8 +2052,15 @@ def main() -> int:
         shape=[p["shape"] for p in parts],
         grid=[p["grid"] for p in parts],
         device_kernels=[p["device_kernels"] for p in parts],
-        check="segmented and suffix (single-segment) scans affine-equal "
-              "in every lane, the same limbs on two launches")
+        check="segmented scan affine-equal in every lane, the same limbs "
+              "on two launches")
+    check("window" in captured, "no window sum in the k = 256 verify")
+    r = results["window_sum"] = check_window(torch, captured["window"],
+                                             REPS)
+    r["check"] = ("affine-equal to the suffix scan then the tree sum, the "
+                  "same limbs on two launches: the verify fold's rows, the "
+                  "fixed-base MSM's, the 2^20-point MSM's, msm_batch's")
+    say_window(r, "the verify fold's")
     evals, z, roots = captured["fractree"]
     r = check_fractree(torch, evals, z, roots, ts.setup.plan, REPS)
     results["fractree"] = r
@@ -2071,16 +2140,10 @@ def main() -> int:
     r = check_bucket(torch, pts, seg, REPS)
     r["check"] = ("affine-equal in every lane of a fixed-base MSM chunk, "
                   "the same limbs on two launches")
-    check("suffix" in cap_fixed, "no fixed-base suffix scan was captured")
-    s = check_bucket(torch, *cap_fixed["suffix"], REPS)
-    say(f"[B3 bucket scan suffix {s['shape']}] ok, affine-equal in every "
-        f"lane, the same limbs twice: {s['ms']:.3f} ms on the card, "
-        f"{s['call_ms']:.3f} ms a call (plain "
-        f"{s['plain_ms']:.1f} ms, bound {s['bound_ms']:.4f} ms by "
-        f"{s['bound_by']}; device kernels launched and their blocks "
-        f"{json.dumps(s['grid'])})")
-    r["other_shapes"] = {"suffix": {f: s[f] for f in (
-        "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape", "grid")}}
+    check("window" in cap_fixed, "no fixed-base window sum was captured")
+    w = check_window(torch, cap_fixed["window"], REPS)
+    say_window(w, "the fixed-base MSM's")
+    results["window_sum"]["other_shapes"] = {"fixed_base": w}
     results["bucket_scan_fixed"] = r
     say(f"[B3 bucket scan fixed-base {r['shape']}] ok, affine-equal in every "
         f"lane, the same limbs twice: {r['ms']:.3f} ms on the card, "
@@ -2114,7 +2177,10 @@ def main() -> int:
     check_b1_launches(paths)
     results["ec_add"]["other_shapes"] = {"setup_gen_g1_ladder": b2_gen,
                                          "verify_kzg_proof_ladder": b2_one}
-    (pts, seg), by_shape = msm_path(torch, ts.setup, paths, say_card)
+    (pts, seg), win, by_shape = msm_path(torch, ts.setup, paths, say_card)
+    w = results["window_sum"]["other_shapes"]["msm_2^20"] = check_window(
+        torch, win, REPS)
+    say_window(w, "the 2^20-point MSM's")
     r = check_bucket(torch, pts, seg, REPS)
     r["check"] = ("affine-equal in every lane of one row of a 2^20-point "
                   "MSM chunk, the same limbs on two launches")
@@ -2131,7 +2197,10 @@ def main() -> int:
     windowed_path(torch, ts, say_card)
     pairing_path(torch, ts.device, say_card)
     g2_msm_path(torch, ts.device, say_card)
-    (pts, seg), _ = msm_batch_path(torch, ts, paths, say_card)
+    (pts, seg), win, _ = msm_batch_path(torch, ts, paths, say_card)
+    w = results["window_sum"]["other_shapes"]["msm_batch"] = check_window(
+        torch, win, REPS)
+    say_window(w, "msm_batch's")
     r = check_bucket(torch, pts, seg, REPS)
     r["check"] = ("affine-equal in every lane of msm_batch's first chunk of "
                   "rows (k = 16 rows a window), the same limbs on two "
@@ -2180,14 +2249,16 @@ def main() -> int:
                                             "montmul_fp")),
                        ("verify_kzg_proof", ("ec_add", "ec_double",
                                              "montmul_fp")),
-                       ("msm_2^20", ("bucket_scan", "ec_add", "ec_double")),
+                       ("msm_2^20", ("bucket_scan", "window_sum", "ec_add",
+                                     "ec_double")),
                        ("tables", ("ec_double",)),
-                       ("msm_batch", ("bucket_scan", "ec_add", "ec_double")),
-                       ("sharded_msm", ("bucket_scan", "ec_add",
-                                        "ec_double")),
+                       ("msm_batch", ("bucket_scan", "window_sum", "ec_add",
+                                      "ec_double")),
+                       ("sharded_msm", ("bucket_scan", "window_sum",
+                                        "ec_add", "ec_double")),
                        ("dist_ntt", ("ntt", "montmul_fr")),
-                       ("sharded_verify", ("bucket_scan", "ec_add",
-                                           "ec_double"))):
+                       ("sharded_verify", ("bucket_scan", "window_sum",
+                                           "ec_add", "ec_double"))):
         for kern in need:
             check(paths[path].get(kern, 0) > 0,
                   f"{kern} was not launched on the {path} path")
@@ -2241,6 +2312,9 @@ def main() -> int:
                             "src/tpukzg/pallas/bucket.py:117"),
         "bucket_scan_msm_batch": ("src/tpukzg_torch/csrc/bucket.cu",
                                   "src/tpukzg/pallas/bucket.py:117"),
+        "window_sum": ("src/tpukzg_torch/csrc/bucket.cu",
+                       "src/tpukzg/pallas/bucket.py:291 and the tree sum "
+                       "of src/tpukzg/msm/pippenger_lm.py:74"),
     }
     # the path whose launches each entry reports; the counter name
     path_of = {"montmul_pow_fr": ("proof_batch", "montmul_pow_fr"),
@@ -2257,6 +2331,7 @@ def main() -> int:
             "bucket_scan_fixed": ptxas["bucket.cu"],
             "bucket_scan_msm": ptxas["bucket.cu"],
             "bucket_scan_msm_batch": ptxas["bucket.cu"],
+            "window_sum": ptxas["bucket.cu"],
             "fractree": ptxas["fractree.cu"], "ntt": ptxas["ntt.cu"]}
     kernels = []
     for name, (src, repl) in meta.items():

@@ -239,7 +239,223 @@ scan_fixup(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
   }
 }
 
+// ---------------------------------------------------------------------
+// The window sum: A = sum_{b=1}^{B-1} b S_b over each row of bucket totals
+// S_1..S_{B-1} (lane i holds S_{i+1}).
+//
+// Replaces tpukzg/pallas/bucket.py::suffix_scan_pallas followed by the
+// tree sum over its lanes in msm/pippenger_lm.py: a flip, a scan of the
+// whole row as one segment (every lane adds at every level), a flip, and
+// log2(B) levels of adds, one launch each.  What bounds it: integer
+// products, 2 adds a bucket (B - 1 running sums, B - 1 weighted ones),
+// and, at the MSM's two rows of 65,535 buckets, the depth of the chains
+// of adds: one ec_add in one thread takes about 12 products in a row.
+// So the work is two running sums, and the weights come from doublings
+// of a few points, not from adds over every bucket:
+//   1. window_sum, grid = rows x blocks, 128 threads.  Thread t owns
+//      s = 2^lg consecutive buckets of its row (the last may have fewer)
+//      and walks them from the top: R += S_b; A += R.  It ends with the
+//      segment's total T_t and A_t, the segment's sum weighted 1..s.
+//      A range of buckets is then the pair (T, A); two adjacent ranges
+//      join as T = T_L + T_R, A = A_L + A_R + [len L] T_R, so the block's
+//      pair is T = sum T_t, A = sum A_t + [s] sum_t t T_t, and
+//      sum_t t T_t = sum_k [2^k] U_k with U_k the sum of the T_t whose
+//      index has bit k.  block_join forms every U_k in the same tree as
+//      the two plain sums, in place (U_k of a node is the P slot of its
+//      thread 2^k), one add a thread a level and no doubling; then quad
+//      k of warp 0 doubles U_k lg + k times (ec_double_quad: four
+//      threads a point, two products deep a doubling), and three levels
+//      of adds sum A.  The block writes its (T, A) to device memory.
+//   2. window_sum_join, one block a row: the same block_join over the
+//      row's block pairs (one a thread; the launcher keeps them at most
+//      128), each a range of 128 s buckets -> the row's A.
+// No atomics: the order of the additions depends on s alone, so two
+// launches give the same limbs, and kernels/bucket.py's
+// window_sum_chunked repeats it add for add.  The wrapper picks s from
+// the rows, the buckets and the card's SMs (window_segment_for): the
+// MSM's two rows of 65,535 take s = 4, a chain of 26 adds and 23 quad
+// doublings, 0.93 ms on an H100 against 2.85 ms for the route replaced.
+// Shared memory: three point buffers (P, Q, a loaded bucket) and
+// ec_add's scratch, 66 KB a block, so __launch_bounds__(128, 3).
+constexpr int kWsSmemBytes = (3 * kW + 24) * kT * 4;
+
+struct WsSmem {
+  uint32_t* s;
+  __device__ __forceinline__ tk::Words p(int t) const {
+    return tk::Words{s + t, kT};
+  }
+  __device__ __forceinline__ tk::Words q(int t) const {
+    return tk::Words{s + kW * kT + t, kT};
+  }
+  __device__ __forceinline__ tk::Words lane(int t) const {
+    return tk::Words{s + 2 * kW * kT + t, kT};
+  }
+  __device__ __forceinline__ tk::Words work() const {
+    return tk::Words{s + 3 * kW * kT + threadIdx.x, kT};
+  }
+  // the terms of the last sum: Q slot 0, then D_k in P slot 2^k
+  __device__ __forceinline__ tk::Words term(int i) const {
+    return i == 0 ? q(0) : p(1 << (i - 1));
+  }
+};
+
+// The block's items t < 2^levels (P slot t: T_t; Q slot t: A_t), item t
+// the range of 2^lg buckets from t 2^lg -> P slot 0: sum T_t; Q slot 0:
+// sum A_t + [2^lg] sum_t t T_t.  Every thread of the block calls it.
+__device__ __forceinline__ void block_join(const WsSmem& sm, int levels,
+                                           int lg) {
+  const int x = threadIdx.x;
+  // 1. level j joins nodes of 2^j items: Q and P of the left node take
+  // the right node's, U_k (k < j, P slot 2^k of a node) likewise, and the
+  // right node's P stays where it is as the new node's U_j
+#pragma unroll 1
+  for (int j = 0; j < levels; ++j) {
+    __syncthreads();
+    const int per = j + 2;
+    if (x < (1 << (levels - j - 1)) * per) {
+      // one ec_add on both branches: a warp never splits into two adds
+      const int a = x % per, o = a < 2 ? 0 : 1 << (a - 2);
+      const int t0 = (x / per) << (j + 1), t1 = t0 + (1 << j);
+      const tk::Words d = a == 0 ? sm.q(t0) : sm.p(t0 + o);
+      tk::ec_add(d, d, a == 0 ? sm.q(t1) : sm.p(t1 + o), sm.work());
+    }
+  }
+  __syncthreads();
+  // 2. D_k = [2^(lg + k)] U_k in place, quad k of warp 0; the quads past
+  // the last U double P slot 0 and keep nothing
+  const int most = lg + levels - 1;
+  if (levels > 0 && most > 0 && x < 32) {
+    const int k = x >> 2, r = x & 3;
+    const tk::Words u = sm.p(k < levels ? 1 << k : 0);
+    uint32_t X[12], Y[12], Z[12];
+    u.get(0, X);
+    u.get(1, Y);
+    u.get(2, Z);
+#pragma unroll 1
+    for (int i = 1; i <= most; ++i) {
+      tk::ec_double_quad(X, Y, Z, r);
+      if (k < levels && i == lg + k && r == 0) {
+        u.put(0, X);
+        u.put(1, Y);
+        u.put(2, Z);
+      }
+    }
+  }
+  __syncthreads();
+  // 3. A = Q_0 + sum_k D_k, a tree over the levels + 1 terms
+#pragma unroll 1
+  for (int h = 1; h <= levels; h <<= 1) {
+    const int i = 2 * h * x;
+    if (i + h <= levels)
+      tk::ec_add(sm.term(i), sm.term(i), sm.term(i + h), sm.work());
+    __syncthreads();
+  }
+}
+
+// Bucket coordinates (24, g, nb) limb-major int32 16-bit limbs; agg:
+// (72, g * nblk) words, the blocks' T (words 0..35) and A (36..71).
+__global__ void __launch_bounds__(kT, 3)
+window_sum(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+           const int32_t* __restrict__ z, uint32_t* __restrict__ agg,
+           long long g, long long nb, int lg, long long nblk, int levels) {
+  extern __shared__ uint32_t smem[];
+  const WsSmem sm{smem};
+  const int t = threadIdx.x;
+  const long long row = blockIdx.x / nblk;
+  const long long lo = ((blockIdx.x % nblk) * kT + t) << lg;
+  const long long hi = min(lo + (1LL << lg), nb), ls = g * nb;
+  const tk::Words R = sm.p(t), A = sm.q(t), S = sm.lane(t);
+  if (lo < hi) {
+    const long long top = row * nb + hi - 1;
+    tk::load_point(R, x + top, y + top, z + top, ls);
+    A.copy_from(R);
+#pragma unroll 1
+    for (long long off = top - 1; off >= row * nb + lo; --off) {
+      tk::load_point(S, x + off, y + off, z + off, ls);
+      tk::ec_add(R, R, S, sm.work());
+      tk::ec_add(A, A, R, sm.work());
+    }
+  } else {
+    R.set_inf();
+    A.set_inf();
+  }
+  block_join(sm, levels, lg);
+  const long long m = g * nblk;
+  if (t < kW) {
+    agg[t * m + blockIdx.x] = smem[t * kT];
+    agg[(kW + t) * m + blockIdx.x] = smem[(kW + t) * kT];
+  }
+}
+
+// One block a row: its nblk <= 128 block pairs, each a range of 2^lg
+// buckets, -> the row's A in (24, g) limbs.
+__global__ void __launch_bounds__(kT, 3)
+window_sum_join(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                int32_t* __restrict__ oz, const uint32_t* __restrict__ agg,
+                long long g, long long nblk, int lg, int levels) {
+  extern __shared__ uint32_t smem[];
+  const WsSmem sm{smem};
+  const int t = threadIdx.x;
+  const long long m = g * nblk;
+  if (t < nblk) {
+    const long long i = blockIdx.x * nblk + t;
+#pragma unroll 4
+    for (int w = 0; w < kW; ++w) {
+      smem[w * kT + t] = agg[w * m + i];
+      smem[(kW + w) * kT + t] = agg[(kW + w) * m + i];
+    }
+  } else {
+    sm.p(t).set_inf();
+    sm.q(t).set_inf();
+  }
+  block_join(sm, levels, lg);
+  if (t == 0)
+    tk::Limbs{ox + blockIdx.x, oy + blockIdx.x, oz + blockIdx.x, g}.store(
+        sm.q(0));
+}
+
+int ceil_log2(long long n) {
+  int l = 0;
+  while ((1LL << l) < n) ++l;
+  return l;
+}
+
 }  // namespace
+
+// The window sums of g rows of nb bucket totals, thread segments of 2^lg
+// buckets: two launches.  agg: (72, g * nblk) words of scratch, nblk =
+// ceil(ceil(nb / 2^lg) / 128), which must be at most 128.  blocks (host
+// memory, 2 ints) receives the grids of window_sum and window_sum_join.
+extern "C" int tpukzg_window_sum(void* ox, void* oy, void* oz, const void* x,
+                                 const void* y, const void* z, void* agg,
+                                 long long g, long long nb, int lg,
+                                 int* blocks, void* stream) {
+  blocks[0] = blocks[1] = 0;
+  const long long segs = (nb + (1LL << lg) - 1) >> lg;
+  const long long nblk = (segs + kT - 1) / kT;
+  if (g < 1 || nb < 1 || lg < 0 || nblk > kT)
+    return (int)cudaErrorInvalidValue;
+  const void* kernels[] = {(const void*)window_sum,
+                           (const void*)window_sum_join};
+  for (const void* k : kernels) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, kWsSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  blocks[0] = (int)(g * nblk);
+  window_sum<<<(unsigned)(g * nblk), kT, kWsSmemBytes, st>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)z,
+      (uint32_t*)agg, g, nb, lg, nblk,
+      ceil_log2(segs < kT ? segs : kT));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  blocks[1] = (int)g;
+  window_sum_join<<<(unsigned)g, kT, kWsSmemBytes, st>>>(
+      (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const uint32_t*)agg, g,
+      nblk, lg + 7, ceil_log2(nblk));
+  return (int)cudaGetLastError();
+}
 
 // Device kernels run: 1 when every row is one chunk, else 3.  blocks
 // (host memory, 3 ints) receives the grid of scan_local, scan_carry and

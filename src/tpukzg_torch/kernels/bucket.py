@@ -1,11 +1,11 @@
-"""B3: inclusive segmented EC-sum scan over sorted bucket keys.
+"""B3: inclusive segmented EC-sum scan over sorted bucket keys, and the
+window sum over a row of bucket totals.
 
-Replaces ``tpukzg/pallas/bucket.py::_scan_kernel`` (entered through
-``seg_scan_pallas`` and ``suffix_scan_pallas``).  One kernel set
-(``csrc/bucket.cu``) serves both scans.  The TPU's sequential grid
-carried a tile's trailing segment into the next; Hopper blocks have no
-order, so a row is cut into chunks of ``THREADS * runs`` lanes, one
-block each, and up to three device kernels run per call:
+The scan replaces ``tpukzg/pallas/bucket.py::_scan_kernel`` (entered
+through ``seg_scan_pallas``).  The TPU's sequential grid carried a
+tile's trailing segment into the next; Hopper blocks have no order, so a
+row is cut into chunks of ``THREADS * runs`` lanes, one block each, and
+up to three device kernels run per call:
 
 1. local: each thread scans a run of ``runs`` lanes in order, the block
    scans its run totals (segmented by each run's last key) and adds them
@@ -18,9 +18,15 @@ block each, and up to three device kernels run per call:
    with.
 
 ``seg_scan_chunked`` runs the same passes in tensor code; the tests hold
-it against the plain scan, it is on no path.  The suffix scan keeps the
-flip -> single segment -> flip structure.  The plain versions are the
-``loop`` scans of ``msm/scan.py``.
+it against the plain scan, it is on no path.
+
+The window sum, sum_b b S_b over the bucket totals S_1..S_{B-1} of a
+row, replaces ``suffix_scan_pallas`` and the tree sum of
+``msm/pippenger_lm.py``: one kernel set of two launches (the header of
+``csrc/bucket.cu`` sets out its design), ``window_sum_chunked`` its
+decomposition in tensor code, and the suffix scan then the tree sum its
+plain version.  The plain scans are the ``loop`` scans of
+``msm/scan.py``.
 """
 
 from __future__ import annotations
@@ -38,7 +44,9 @@ SENTINEL = 0x7FFFFFF0
 THREADS = 128          # threads a block; a chunk is THREADS * runs lanes
 
 _fn = None
+_ws_fn = None
 KERNELS = ("scan_local", "scan_carry", "scan_fixup")
+WS_KERNELS = ("window_sum", "window_sum_join")
 # The blocks of each device kernel the last launch ran (those it ran only).
 last_grid: dict = {}
 
@@ -49,6 +57,12 @@ def seg_scan_plain(pts, seg):
 
 def suffix_scan_plain(pts):
     return _scan.suffix_scan(G1_LM_PLAIN, pts)
+
+
+def window_sum_plain(buckets):
+    """sum_b b S_b of each row of (24, g, B - 1) bucket coords -> (24, g):
+    the suffix scan over the buckets, then a tree sum."""
+    return G1_LM_PLAIN.reduce_sum_lanes(suffix_scan_plain(buckets), axis=1)
 
 
 def seg_scan_chunked(pts, seg, sizes, curve=G1_LM_PLAIN):
@@ -139,12 +153,129 @@ def seg_scan(pts, seg):
     return _launch(pts, seg)
 
 
-def suffix_scan(pts):
-    """out[i] = sum_{j >= i} pts[j] along the lanes of (24, g, n) coords."""
-    dev = pts[0].device
+def _ceil_log2(n: int) -> int:
+    return max(0, (n - 1).bit_length())
+
+
+def _window_join(P, Q, levels: int, lg: int):
+    """The kernels' block_join on items (L, m, >= 2^levels): item t, the
+    range of 2^lg buckets from t 2^lg, holds (P[..., t], Q[..., t]) =
+    (its total, its sum weighted 1..2^lg) -> the pair of items 0..2^levels
+    - 1 joined, add for add as the kernel (each level's adds at once)."""
+    P, Q = [c.clone() for c in P], [c.clone() for c in Q]
+    dev = P[0].device
+
+    def join(X, idx, h):
+        new = G1_LM_PLAIN.add(tuple(c[..., idx] for c in X),
+                              tuple(c[..., idx + h] for c in X))
+        for c, v in zip(X, new):
+            c[..., idx] = v
+
+    for j in range(levels):
+        t0 = torch.arange(0, 1 << levels, 2 << j, device=dev)
+        offs = torch.tensor([0] + [1 << k for k in range(j)], device=dev)
+        join(Q, t0, 1 << j)
+        join(P, (t0[:, None] + offs).reshape(-1), 1 << j)
+    terms = [tuple(c[..., 0] for c in Q)] + [
+        G1_LM_PLAIN.double_n(tuple(c[..., 1 << k] for c in P), lg + k)
+        for k in range(levels)]
+    h = 1
+    while h <= levels:
+        for i in range(0, levels + 1 - h, 2 * h):
+            terms[i] = G1_LM_PLAIN.add(terms[i], terms[i + h])
+        h *= 2
+    return tuple(c[..., 0] for c in P), terms[0]
+
+
+def window_sum_chunked(buckets, s: int, threads: int = THREADS):
+    """The window-sum kernels' decomposition in tensor code, for the
+    tests: segments of s buckets walked from the top (R += S; A += R),
+    blocks of `threads` segments joined by ``_window_join``, then each
+    row's blocks joined the same way.  With threads = THREADS and s a
+    power of two it gives the kernels' limbs."""
+    L, g, nb = buckets[0].shape
+    lg, tl = s.bit_length() - 1, threads.bit_length() - 1
+    segs = -(-nb // s)
+    nblk = -(-segs // threads)
+    if s != 1 << lg or threads != 1 << tl or nblk > threads:
+        raise ValueError(f"window sum: s {s}, threads {threads}, "
+                         f"{nblk} blocks a row")
+    dev, curve = buckets[0].device, G1_LM_PLAIN
+    pad = segs * s - nb
+    S = tuple(torch.cat([c, i], 2).reshape(L, g, segs, s) for c, i in
+              zip(buckets, curve.inf((g, pad), dev)))
+    lane = torch.arange(segs * s, device=dev).reshape(segs, s)
+    top = (torch.arange(1, segs + 1, device=dev) * s).clamp(max=nb) - 1
+    R = A = curve.inf((g, segs), dev)
+    for i in range(s - 1, -1, -1):
+        Si = tuple(c[..., i] for c in S)
+        live, first = lane[:, i] < nb, lane[:, i] == top
+        R1 = curve.select(first, Si, curve.add(R, Si))
+        A1 = curve.select(first, Si, curve.add(A, R1))
+        R, A = curve.select(live, R1, R), curve.select(live, A1, A)
+    # the blocks: segments past the row's end are infinity
+    inf = curve.inf((g, nblk * threads - segs), dev)
+    items = [tuple(torch.cat([c, i], 2).reshape(L, g * nblk, threads)
+                   for c, i in zip(X, inf)) for X in (R, A)]
+    T, A = _window_join(*items, _ceil_log2(min(segs, threads)), lg)
+    # the join: one block a row over its nblk block pairs
+    inf = curve.inf((g, threads - nblk), dev)
+    items = [tuple(torch.cat([c.reshape(L, g, nblk), i], 2) for c, i in
+                   zip(X, inf)) for X in (T, A)]
+    return _window_join(*items, _ceil_log2(nblk), lg + tl)[1]
+
+
+def window_segment_for(g: int, nb: int, sms: int) -> int:
+    """Buckets a thread of the window sum walks: the largest of 16, 8, 4
+    and 2 that still gives two blocks an SM, else 1; then doubled until a
+    row has at most THREADS blocks (the join takes one a thread)."""
+    s = next((c for c in (16, 8, 4, 2)
+              if g * -(-nb // (THREADS * c)) >= 2 * sms), 1)
+    while -(-nb // (THREADS * s)) > THREADS:
+        s *= 2
+    return s
+
+
+def _launch_window(buckets, s=None):
+    dev = buckets[0].device
+    L, g, nb = buckets[0].shape
+    if L != 24 or any(c.shape != (L, g, nb) for c in buckets):
+        raise ValueError("window sum: shapes "
+                         f"{[tuple(c.shape) for c in buckets]}")
+    if any(c.device != dev for c in buckets):
+        raise ValueError("window sum: tensors on several devices")
+    if g == 0 or nb == 0:
+        return G1_LM_PLAIN.inf((g,), dev)
+    if s is None:
+        s = window_segment_for(g, nb, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    lg = s.bit_length() - 1
+    nblk = -(-nb // (s * THREADS))            # blocks a row
+    if s != 1 << lg or nblk > THREADS:
+        raise ValueError(f"window sum: s {s} for {nb} buckets")
+    ins = [c.to(I32).contiguous() for c in buckets]
+    out = [torch.empty((L, g), dtype=I32, device=dev) for _ in range(3)]
+    agg = torch.empty((72, g * nblk), dtype=I32, device=dev)  # block pairs
+    global _ws_fn
+    if _ws_fn is None:
+        _ws_fn = _build.fn("tpukzg_window_sum", "pppppppllipp")
+    blocks = (ctypes.c_int * 2)()
+    err = _ws_fn(*[o.data_ptr() for o in out], *[c.data_ptr() for c in ins],
+                 agg.data_ptr(), g, nb, lg, ctypes.addressof(blocks),
+                 _build.stream_ptr(dev))
+    _build.check(err, "tpukzg_window_sum")
+    _build.launches["window_sum"] += 1
+    last_grid.clear()
+    last_grid.update(zip(WS_KERNELS, blocks))
+    return tuple(out)
+
+
+def window_sum(buckets):
+    """sum_b b S_b of each row of (24, g, B - 1) bucket coords (lane i
+    holds S_{i+1}) -> (24, g).  CPU -> plain version; CUDA -> kernel."""
+    dev = buckets[0].device
     if dev.type == "cpu":
-        return suffix_scan_plain(pts)
-    rev = tuple(torch.flip(c, dims=[2]) for c in pts)
-    zeros = torch.zeros(rev[0].shape[1:], dtype=I32, device=dev)
-    out = seg_scan(rev, zeros)
-    return tuple(torch.flip(c, dims=[2]) for c in out)
+        return window_sum_plain(buckets)
+    if dev.type != "cuda":
+        raise ValueError(f"window sum: unsupported device {dev}")
+    return _launch_window(buckets)

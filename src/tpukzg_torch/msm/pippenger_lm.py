@@ -2,8 +2,9 @@
 ``tpukzg/msm/pippenger.py:36-58`` and ``msm/pippenger_lm.py``).
 
 Sort-by-digit, then the segmented bucket scan (kernel B3 on the card),
-one gather of each bucket's last lane, the suffix scan over buckets
-(B3 again) and a tree sum over buckets.  The grouped MSM (batch verify)
+one gather of each bucket's last lane, and the window sum over buckets
+(the window-sum kernel on the card; the suffix scan and a tree sum on
+the CPU).  The grouped MSM (batch verify)
 then folds its windows by Horner; the fixed-base MSM (commit, open) has
 them folded into a table of [2^(c w)] P_i, so one sorted row of W n keys
 per MSM needs no doublings at all.  The public `msm` cuts a long point
@@ -60,12 +61,6 @@ def _bucket_totals(curve, scanned, sorted_dg, c: int):
                                                 hit.device))
 
 
-def _window_sums(curve, buckets):
-    """sum_b b * S_b: suffix scan over the bucket axis, then a tree sum."""
-    suffix = bucket.suffix_scan(buckets)
-    return curve.reduce_sum_lanes(suffix, axis=1)
-
-
 def _chunk(n: int, rows: int, budget: int = 1 << 28) -> int:
     """Rows of n sorted digits a bucket-scan chunk takes: MsmConfig's
     window_chunk, else as many as `budget` bytes hold."""
@@ -89,7 +84,7 @@ def _window_rows(pts_flat, rows, offs, c: int, curve: CurveLM):
         pts = tuple(c_[:, idx] for c_ in pts_flat)           # (L, gch, n)
         scanned = bucket.seg_scan(pts, sorted_dg)
         buckets = _bucket_totals(curve, scanned, sorted_dg, c)
-        wres.append(_window_sums(curve, buckets))            # (L, gch)
+        wres.append(bucket.window_sum(buckets))              # (L, gch)
     return tuple(torch.cat([w[i] for w in wres], -1) for i in range(3))
 
 
@@ -188,7 +183,7 @@ def msm_fixed(table, scalars, c: int, curve: CurveLM = G1_LM):
         pts = tuple(c_[:, perm] for c_ in flat)               # (24, g, W n)
         scanned = bucket.seg_scan(pts, sorted_dg)
         buckets = _bucket_totals(curve, scanned, sorted_dg, c)
-        res.append(_window_sums(curve, buckets))              # (24, g)
+        res.append(bucket.window_sum(buckets))                # (24, g)
     return tuple(torch.cat([r[i] for r in res], 1).movedim(0, -1)
                  for i in range(3))
 

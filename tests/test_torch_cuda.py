@@ -24,7 +24,8 @@ from tpukzg_torch.kernels import bucket, ec, fractree, montmul, ntt
 from tpukzg_torch.utils import checked
 
 from torch_cases import (SRS16, ec_inputs, long_row_scan_inputs,
-                         ntt_inputs, operands, scan_inputs, srs_points)
+                         ntt_inputs, operands, scan_inputs, srs_points,
+                         window_inputs)
 
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
@@ -86,8 +87,8 @@ def test_bucket_kernel_on_card(cuda, n):
     ts = torch.from_numpy(seg).to(cuda)
     assert bool(G1_LM_PLAIN.eq(bucket.seg_scan(tp, ts),
                                bucket.seg_scan_plain(tp, ts)).all())
-    assert bool(G1_LM_PLAIN.eq(bucket.suffix_scan(tp),
-                               bucket.suffix_scan_plain(tp)).all())
+    assert bool(G1_LM_PLAIN.eq(bucket.window_sum(tp),
+                               bucket.window_sum_plain(tp)).all())
 
 
 def _card_fr(cuda, shape, seed):
@@ -290,8 +291,8 @@ def test_bucket_kernel_chunk_edges_on_card(cuda, runs):
 def test_bucket_kernel_fixed_base_row_on_card(cuda):
     """One row shaped like a fixed-base MSM's: 98,304 lanes under 2,048
     sorted digit keys (0 included), with the launcher's choice of runs
-    and with 4; two launches give the same limbs.  Then the suffix scan
-    over 2,047 buckets (one segment)."""
+    and with 4; two launches give the same limbs.  Then the window sum
+    over 2,047 buckets."""
     pts, seg = scan_inputs(1, 98304, 12, nkeys=2048)
     tp = tuple(torch.from_numpy(c).to(cuda) for c in pts)
     ts = torch.from_numpy(seg).to(cuda)
@@ -302,8 +303,8 @@ def test_bucket_kernel_fixed_base_row_on_card(cuda):
         again = bucket._launch(tp, ts, runs)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
     sub = tuple(c[:, :, :2047].contiguous() for c in tp)
-    assert bool(G1_LM_PLAIN.eq(bucket.suffix_scan(sub),
-                               bucket.suffix_scan_plain(sub)).all())
+    assert bool(G1_LM_PLAIN.eq(bucket.window_sum(sub),
+                               bucket.window_sum_plain(sub)).all())
 
 
 @pytest.mark.cuda
@@ -315,6 +316,75 @@ def test_bucket_kernel_long_rows_on_card(cuda):
     ts = torch.from_numpy(seg).to(cuda)
     assert bool(G1_LM_PLAIN.eq(bucket.seg_scan(tp, ts),
                                bucket.seg_scan_plain(tp, ts)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,nb", [(2, 65535), (64, 255), (3, 2047),
+                                  (75, 2047)],
+                         ids=["msm", "verify", "fixed", "batch"])
+def test_window_sum_kernel_on_card(cuda, g, nb):
+    """The window sum at the shapes the MSMs give it (the public MSM's
+    two rows of 65,535 buckets, the batch verify's fold, the fixed-base
+    MSM, a chunk of msm_batch's rows at n = 4096) with the launcher's
+    s: affine-equal to the plain route, the limbs of its decomposition
+    in tensor code, the same limbs from two launches, one launch counted
+    a call, and the grid reported."""
+    from tpukzg_torch.kernels import _build
+    b = tuple(torch.from_numpy(c).to(cuda) for c in window_inputs(g, nb, g))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    s = bucket.window_segment_for(g, nb, sms)
+    before = _build.launches["window_sum"]
+    got = bucket.window_sum(b)
+    assert _build.launches["window_sum"] - before == 1
+    assert bucket.last_grid == {
+        "window_sum": g * -(-nb // (s * bucket.THREADS)),
+        "window_sum_join": g}
+    assert bool(G1_LM_PLAIN.eq(got, bucket.window_sum_plain(b)).all())
+    assert all(torch.equal(a, w) for a, w in zip(
+        got, bucket.window_sum_chunked(b, s)))
+    again = bucket.window_sum(b)
+    assert _build.launches["window_sum"] - before == 2
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+    assert bool(G1_LM_PLAIN.is_inf(tuple(c[:, -1:] for c in got)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 8, 64, 256])
+def test_window_sum_segments_on_card(cuda, s):
+    """Three rows of 2,047 buckets with s forced from one bucket a thread
+    (16 blocks a row) to one segment a row: each the limbs of the
+    tensor-code decomposition at that s."""
+    b = tuple(torch.from_numpy(c).to(cuda)
+              for c in window_inputs(3, 2047, s))
+    got = bucket._launch_window(b, s)
+    assert all(torch.equal(a, w) for a, w in zip(
+        got, bucket.window_sum_chunked(b, s)))
+
+
+@pytest.mark.cuda
+def test_msm_window_sum_on_card(cuda, monkeypatch):
+    """The public MSM over 2^17 points (SRS points drawn with repeats,
+    seeded scalars) at c = 16, so its window sums run on two rows of
+    65,535 buckets, eight calls: equal in affine form to the same MSM
+    with the window sums on the plain route."""
+    from tpukzg_torch.curve import g1 as g1m
+    from tpukzg_torch.kernels import _build
+    from tpukzg_torch.msm.pippenger_lm import msm
+    pool = tuple(torch.from_numpy(c.T.copy()).to(cuda) for c in srs_points())
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    idx = torch.randint(0, pool[0].shape[0], (1 << 17,), generator=gen,
+                        device=cuda)
+    pts = tuple(c[idx].contiguous() for c in pool)
+    k = torch.randint(0, 1 << 16, (1 << 17, 16), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    k[..., 15] &= 0x3FFF
+    before = _build.launches["window_sum"]
+    got = msm(pts, k, c=16)
+    assert _build.launches["window_sum"] - before == 8
+    monkeypatch.setattr(bucket, "window_sum", bucket.window_sum_plain)
+    want = msm(pts, k, c=16)
+    assert g1m.compress_points(tuple(c.cpu()[None] for c in got)) == \
+        g1m.compress_points(tuple(c.cpu()[None] for c in want))
 
 
 # ---------------------------------------------------------------------------

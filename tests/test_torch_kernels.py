@@ -19,7 +19,7 @@ from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
 from tpukzg_torch.kernels import bucket, ec, montmul
 
 from torch_cases import (chunk_scan_inputs, ec_inputs, operands,
-                         scan_inputs, srs_points)
+                         scan_inputs, srs_points, window_inputs)
 
 # Tiny tensors: one intra-op thread keeps parallel test workers from
 # oversubscribing the cores.
@@ -193,10 +193,9 @@ def test_suffix_scan_plain_vs_loop_scan():
     ref = jsuf(JG1.add, JG1.select, tuple(c.astype(np.uint32) for c in pts),
                coord_axis=2, batch_shape=(2, 15), scan_axis_in_batch=1,
                impl="loop")
-    tp = tuple(torch.from_numpy(c) for c in pts)
-    for got in (bucket.suffix_scan_plain(tp), bucket.suffix_scan(tp)):
-        for g, r in zip(got, ref):
-            assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int32))
+    got = bucket.suffix_scan_plain(tuple(torch.from_numpy(c) for c in pts))
+    for g, r in zip(got, ref):
+        assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int32))
 
 
 @pytest.fixture(scope="module")
@@ -234,6 +233,46 @@ def test_seg_scan_chunked_vs_loop_scan(chunk_case, sizes):
     assert bool(G1_LM_PLAIN.eq(got, ref_suf).all())
 
 
+@pytest.mark.parametrize("g,nb,s,threads", [
+    (2, 255, 1, 128), (2, 255, 4, 8), (1, 2047, 2, 128), (1, 2047, 32, 8),
+    (1, 37, 64, 128)], ids=["verify-s1", "ragged-s4", "fixed-s2",
+                            "fixed-s32-t8", "one-segment"])
+def test_window_sum_chunked_vs_plain(g, nb, s, threads):
+    """The window-sum kernels' decomposition in tensor code against the
+    plain route (suffix scan, then the tree sum), affine-equal: rows of
+    the batch verify's 255 buckets and the fixed-base MSM's 2047 at a
+    row or two; s = 1, s not dividing B - 1, a segment longer than the
+    row; blocks of 128 segments and of 8 (so the join meets several
+    blocks); empty buckets, a row all infinity and the doubling case
+    (window_inputs).  The CPU wrapper takes the plain route."""
+    b = tuple(torch.from_numpy(c) for c in window_inputs(g, nb, nb + s))
+    want = bucket.window_sum_plain(b)
+    got = bucket.window_sum_chunked(b, s, threads)
+    assert got[0].shape == (24, g)
+    assert bool(G1_LM_PLAIN.eq(got, want).all())
+    assert all(torch.equal(a, w) for a, w in zip(bucket.window_sum(b), want))
+    if g == 2:
+        assert bool(G1_LM_PLAIN.is_inf(tuple(c[:, 1:] for c in got)).all())
+
+
+def test_window_segment_for():
+    """The launcher's buckets a thread on a 132-SM card: the MSM's two
+    rows of 65,535 (4: at 2 a row would need 256 join threads), the
+    verify fold's 64 x 255 and the fixed-base 3 x 2047 (1: too few
+    blocks for two an SM), msm_batch's 75 x 2047 (4); always a power of
+    two leaving at most THREADS blocks a row."""
+    shapes = [(2, 65535), (64, 255), (3, 2047), (75, 2047), (512, 65535),
+              (1, 1), (1, 1 << 20)]
+    got = [bucket.window_segment_for(g, nb, 132) for g, nb in shapes]
+    assert got[:5] == [4, 1, 1, 4, 16]
+    for (g, nb), s in zip(shapes, got):
+        assert s & (s - 1) == 0
+        assert -(-nb // (s * bucket.THREADS)) <= bucket.THREADS
+    with pytest.raises(ValueError):
+        bucket.window_sum_chunked(tuple(torch.zeros((24, 1, 40), dtype=torch.int32)
+                                        for _ in range(3)), 3)
+
+
 @pytest.mark.slow
 def test_scans_plain_vs_pallas_scan_tiled():
     """Against the Pallas bucket scan's CPU path (interpret=True) with
@@ -251,7 +290,7 @@ def test_scans_plain_vs_pallas_scan_tiled():
                                      interpret=True, tile=128)
     tp = tuple(torch.from_numpy(c) for c in pts)
     for got, ref in ((bucket.seg_scan(tp, torch.from_numpy(seg)), ref_seg),
-                     (bucket.suffix_scan(tp), ref_suf)):
+                     (bucket.suffix_scan_plain(tp), ref_suf)):
         ref_t = tuple(torch.from_numpy(np.asarray(c).astype(np.int32))
                       for c in ref)
         assert bool(G1_LM_PLAIN.eq(got, ref_t).all())

@@ -62,6 +62,28 @@ def scan_inputs(g, n, seed, nkeys=5):
     return coords, seg
 
 
+def window_inputs(g, n, seed):
+    """(24, g, n) bucket coords for the window sum: SRS points (drawn with
+    repeats), about one bucket in five empty (infinity), the top two
+    buckets of row 0 equal and the one below them empty (so the walk's
+    R += S and A += R meet the doubling case), and, from two rows on,
+    the last row all infinity."""
+    pts = srs_points()
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, pts[0].shape[1], size=(g, n))
+    idx[0, n - 2:] = idx[0, n - 1]
+    coords = [c[:, idx].copy() for c in pts]
+    empty = rng.random((g, n)) < 0.2
+    empty[0, n - 2:] = False
+    empty[0, max(n - 3, 0)] = n >= 3
+    if g >= 2:
+        empty[-1] = True
+    inf = (np.zeros(24, np.int32), FP.one_mont, np.zeros(24, np.int32))
+    for c, v in zip(coords, inf):
+        c[:, empty] = v[:, None]
+    return tuple(coords)
+
+
 def chunk_scan_inputs(seed):
     """(24, 5, 31) coords from the SRS points under five rows of sorted
     keys that probe a chunked scan: digit-0 lanes and a segment of 20

@@ -93,7 +93,12 @@ Phases, each printed on its own line:
      B2 and B6 held there on its step adds and runs of 4 doublings);
      pairing(G1, G2) equal to golden's value (computed on the host) and
      e([a] P, Q) == e(P, [a] Q); the generic Pippenger over 64 G2 points
-     equal to golden; msm_batch with k = 16 rows over the n = 4096
+     equal to golden; the public msm over 2^20 G2 points, the G2 cell's
+     size (G2_LM, the G2 instances of B2, B3, B6 and the window sum)
+     equal to golden's [sum k_i d_i] G2, its launches counted, each G2
+     instance against its plain version on that MSM's shapes and timed
+     (ec_add_g2, ec_double_g2, bucket_scan_g2, window_sum_g2 in the
+     kernels line); msm_batch with k = 16 rows over the n = 4096
      Lagrange points equal to 16 calls of msm, and B3 on its first chunk
      of rows and the window sum on its first buckets against their plain
      versions; then the multi-GPU paths
@@ -147,6 +152,10 @@ def montmul_ops(words: int) -> int:
 
 EC_ADD_OPS = 12 * montmul_ops(12)
 EC_DOUBLE_OPS = 8 * montmul_ops(12)
+# G2 over Fp2, Karatsuba: an add's 12 Fp2 products are 36 Fp products; a
+# double's 6 products and 2 squares, 22
+EC_ADD_OPS_G2 = 36 * montmul_ops(12)
+EC_DOUBLE_OPS_G2 = 22 * montmul_ops(12)
 REPS = 10          # timed launches per kernel (median reported)
 
 
@@ -509,25 +518,28 @@ def check_ec_add(torch, pool, lanes: int, gen, reps: int):
 
 
 def hold_ec_add(torch, p, q, reps: int):
-    """B2 against its plain version on (p, q) (batch axes broadcast), and
-    both timed -> the kernel entry's numbers and the kernel's output."""
-    from tpukzg_torch.field.limb_major import FP_LM_PLAIN
+    """B2 (G1, or its G2 instance on 48-limb coords) against its plain
+    version on (p, q) (batch axes broadcast), and both timed -> the
+    kernel entry's numbers and the kernel's output."""
     from tpukzg_torch.kernels import ec
     coords = torch.broadcast_tensors(*p, *q)
     p, q = tuple(c.contiguous() for c in coords[:3]), \
         tuple(c.contiguous() for c in coords[3:])
+    L = p[0].shape[0]
+    F = ec.PLAIN_FIELD[L]
     got = ec.ec_add(p, q)
-    want = ec.ec_add_plain(p, q, FP_LM_PLAIN)
+    want = ec.ec_add_plain(p, q, F)
     torch.cuda.synchronize()
     err = max(int((g.long() - w.long()).abs().max().item())
               for g, w in zip(got, want))
-    lanes = p[0].numel() // 24
-    check(err == 0, f"ec_add on {lanes} lanes: kernel != plain (max limb "
-          f"err {err})")
+    lanes = p[0].numel() // L
+    check(err == 0, f"ec_add on {lanes} lanes of {L} limbs: kernel != "
+          f"plain (max limb err {err})")
     ms = graph_ms(torch, lambda: ec.ec_add(p, q), reps)
     call_ms = cuda_ms(torch, lambda: ec.ec_add(p, q), reps)
-    pms = cuda_ms(torch, lambda: ec.ec_add_plain(p, q, FP_LM_PLAIN), 1)
-    bms, by = bound_ms(9 * lanes * 24 * 4, lanes * EC_ADD_OPS)
+    pms = cuda_ms(torch, lambda: ec.ec_add_plain(p, q, F), 1)
+    bms, by = bound_ms(9 * lanes * L * 4, lanes * (
+        EC_ADD_OPS if L == 24 else EC_ADD_OPS_G2))
     return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=pms,
                 bound_ms=bms, bound_by=by, shape=list(p[0].shape), out=got)
 
@@ -780,11 +792,11 @@ def scan_adds(torch, seg) -> int:
 
 
 def check_bucket(torch, pts, seg, reps: int):
-    """Kernel against the plain scan, in groups of rows of at most 2^16
-    lanes (a plain scan of one 98,304-lane row holds ~3 GB of int64
-    products at a time)."""
-    from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
+    """Kernel against the plain scan (G1, or G2 on 48-limb coords), in
+    groups of rows of at most 2^16 lanes (a plain scan of one
+    98,304-lane row holds ~3 GB of int64 products at a time)."""
     from tpukzg_torch.kernels import bucket
+    L = pts[0].shape[0]
     got = bucket._launch(pts, seg)
     grid = dict(bucket.last_grid)
     again = bucket._launch(pts, seg)
@@ -801,7 +813,7 @@ def check_bucket(torch, pts, seg, reps: int):
     want, pms = timed_once(torch, plain)
     err = max(int((g.long() - w.long()).abs().max().item())
               for g, w in zip(got, want))
-    same = G1_LM_PLAIN.eq(got, want)
+    same = bucket.plain_curve(pts).eq(got, want)
     check(bool(same.all().item()), "bucket scan: kernel != plain after "
           f"normalisation in {int((~same).sum().item())} lanes of "
           f"{tuple(seg.shape)}")
@@ -809,39 +821,41 @@ def check_bucket(torch, pts, seg, reps: int):
     call_ms = cuda_ms(torch, lambda: bucket._launch(pts, seg), reps)
     g, n = seg.shape
     adds = scan_adds(torch, seg)
-    bms, by = bound_ms(6 * 24 * 4 * g * n + 4 * g * n, adds * EC_ADD_OPS)
+    bms, by = bound_ms(6 * L * 4 * g * n + 4 * g * n, adds * (
+        EC_ADD_OPS if L == 24 else EC_ADD_OPS_G2))
     check(grid.get("scan_local", 0) > 0,
           f"bucket scan on {tuple(seg.shape)} reported the grid {grid}")
     return dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=pms,
-                bound_ms=bms, bound_by=by, adds=adds, shape=[24, g, n],
+                bound_ms=bms, bound_by=by, adds=adds, shape=[L, g, n],
                 device_kernels=len(grid), grid=grid)
 
 
 def check_window(torch, buckets, reps: int):
-    """The window-sum kernel against its plain route (the suffix scan,
-    then the tree sum) in affine form, and twice to the same limbs; its
-    time on the card and a call; bound: two adds a bucket."""
-    from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
+    """The window-sum kernel (G1, or G2 on 48-limb coords) against its
+    plain route (the suffix scan, then the tree sum) in affine form, and
+    twice to the same limbs; its time on the card and a call; bound: two
+    adds a bucket."""
     from tpukzg_torch.kernels import bucket
     got = bucket._launch_window(buckets)
     grid = dict(bucket.last_grid)
     again = bucket._launch_window(buckets)
-    _, g, nb = buckets[0].shape
+    L, g, nb = buckets[0].shape
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"window sum: two launches on {g} x {nb} buckets differ")
     want, pms = timed_once(torch, lambda: bucket.window_sum_plain(buckets))
     err = max(int((a.long() - b.long()).abs().max().item())
               for a, b in zip(got, want))
-    same = G1_LM_PLAIN.eq(got, want)
+    same = bucket.plain_curve(buckets).eq(got, want)
     check(bool(same.all().item()), "window sum: kernel != plain after "
           f"normalisation in {int((~same).sum().item())} of {g} rows")
-    bms, by = bound_ms(3 * 24 * 4 * g * nb, 2 * g * nb * EC_ADD_OPS)
+    bms, by = bound_ms(3 * L * 4 * g * nb, 2 * g * nb * (
+        EC_ADD_OPS if L == 24 else EC_ADD_OPS_G2))
     return dict(max_abs_err=err,
                 ms=graph_ms(torch, lambda: bucket._launch_window(buckets),
                             reps),
                 call_ms=cuda_ms(torch, lambda: bucket._launch_window(buckets),
                                 reps),
-                plain_ms=pms, bound_ms=bms, bound_by=by, shape=[24, g, nb],
+                plain_ms=pms, bound_ms=bms, bound_by=by, shape=[L, g, nb],
                 grid=grid)
 
 
@@ -1605,6 +1619,146 @@ def g2_msm_path(torch, dev, say_card, n: int = 64):
     return dict(ms=ms)
 
 
+def g2_kernels_path(torch, paths, say_card, reps: int, log_n: int = 20):
+    """The public MSM over G2 (G2_LM) on 2^log_n points [d_i] G2 made by
+    the windowed G2 ladder from seeded d (in ladders of 2^17 lanes, as
+    the G2 cell's set-up), seeded scalars: equal to golden's [sum k_i
+    d_i] G2 in affine form, its launches (counted from 0 just before)
+    those of the G2 instances alone.  Then each G2 instance against its
+    plain version on that MSM's own shapes and timed: ec_add_g2 on 2^16
+    lanes (bit-exact), ec_double_g2 on the Horner fold's run (1 lane x
+    c) and on 2^16 lanes x 1 (bit-exact), the bucket scan on the MSM's
+    first row and the window sum on its first buckets, at the segment
+    the MSM picked (affine-equal, the same limbs twice).  -> {kernel:
+    entry}."""
+    sys.path.insert(0, REPO)
+    import golden.model as gold
+    import numpy as np
+    from tpukzg_torch.curve.weierstrass_lm import G2_LM
+    from tpukzg_torch.field.limb_major import FP2_LM_PLAIN
+    from tpukzg_torch.field.mont import FP, R_MOD
+    from tpukzg_torch.kernels import bucket, ec
+    from tpukzg_torch.msm.pippenger_lm import default_window, msm
+    dev, N, ladder = torch.device("cuda"), 1 << log_n, 1 << 17
+    gen = torch.Generator(device="cuda").manual_seed(0x62)
+    d, k = (torch.randint(0, 1 << 16, (N, 16), generator=gen, device=dev,
+                          dtype=torch.int32) for _ in range(2))
+    d[..., 15] &= 0x3FFF
+    k[..., 15] &= 0x3FFF
+    g = tuple(torch.as_tensor(np.concatenate(
+        [FP.to_mont_host(v0), FP.to_mont_host(v1)]), device=dev)[:, None]
+        for v0, v1 in ((gold.G2_X0, gold.G2_X1), (gold.G2_Y0, gold.G2_Y1),
+                       (1, 0)))
+
+    def points():
+        parts = [G2_LM.scalar_mul(g, d[i:i + ladder])
+                 for i in range(0, N, ladder)]
+        return tuple(torch.cat([p_[c_] for p_ in parts], 1).T.contiguous()
+                     for c_ in range(3))
+
+    pts, pts_ms = timed_once(torch, points)
+    cap = {}
+    orig, orig_ws = bucket._launch, bucket._launch_window
+
+    def rec(p, seg):
+        if "row" not in cap:
+            cap["row"] = (tuple(c[:, :1].contiguous() for c in p),
+                          seg[:1].contiguous())
+        return orig(p, seg)
+
+    def rec_ws(buckets, s=None):
+        if "window" not in cap:
+            cap["window"] = tuple(c.clone() for c in buckets)
+        return orig_ws(buckets, s)
+
+    bucket._launch, bucket._launch_window = rec, rec_ws
+    try:
+        out, wall, paths["g2_msm"] = run_path(torch, lambda: msm(
+            pts, k, curve=G2_LM))
+    finally:
+        bucket._launch, bucket._launch_window = orig, orig_ws
+
+    def as_int(t):
+        b = t.cpu().numpy().astype("<u2").tobytes()
+        return [int.from_bytes(b[i:i + 32], "little")
+                for i in range(0, len(b), 32)]
+
+    s = sum(a * b for a, b in zip(as_int(k), as_int(d))) % R_MOD
+    w = gold.g2_affine(gold.g2_mul(gold.G2_GEN, s))
+    x, y, inf = G2_LM.normalize(tuple(c[:, None] for c in out))
+    got = tuple((FP.to_int(FP.from_mont(c[:24, 0].cpu())),
+                 FP.to_int(FP.from_mont(c[24:, 0].cpu()))) for c in (x, y))
+    check(not bool(inf[0]) and got == ((w[0].c0, w[0].c1),
+                                       (w[1].c0, w[1].c1)),
+          f"the G2 MSM of 2^{log_n} points differs from [sum k_i d_i] G2")
+    launched = {n_: c for n_, c in paths["g2_msm"].items() if c}
+    check(set(launched) == {"bucket_scan_g2", "window_sum_g2", "ec_add_g2",
+                            "ec_double_g2"},
+          f"the G2 MSM launched {launched}, not the G2 instances alone")
+    c = default_window(N)
+    nb = cap["window"][0].shape[2]
+    seg = bucket.window_segment_for(
+        cap["window"][0].shape[1], nb,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    say_card(f"[G2 msm 2^{log_n}] equals golden's [sum k_i d_i] G2: True; "
+             f"{wall:.3f} s (one call, c = {c}, B3 rows of "
+             f"{tuple(cap['row'][1].shape)}, window sums of {nb} buckets "
+             f"at s = {seg}); the points by the windowed G2 ladder "
+             f"{pts_ms:.1f} ms; kernel launches (counted from 0) "
+             f"{json.dumps(launched)}")
+    res = {}
+    pool_i = torch.randint(0, N, (2, 1 << 16), generator=gen, device=dev)
+    p = tuple(c.T[:, pool_i[0]].contiguous() for c in pts)
+    q = tuple(c.T[:, pool_i[1]].contiguous() for c in pts)
+    for ci in range(3):
+        q[ci][:, 0] = p[ci][:, 0]                       # P + P
+        q[ci][:, 1] = p[ci][:, 1]
+    q[1][:, 1] = FP2_LM_PLAIN.neg(p[1][:, 1:2])[:, 0]   # P + (-P)
+    r = hold_ec_add(torch, p, q, reps)
+    r.pop("out")
+    r["check"] = "bit-exact in all 65536 lanes incl. P+P, P+(-P)"
+    res["ec_add_g2"] = r
+    for lanes, times, name in ((1, c, "the Horner fold's run"),
+                               (1 << 16, 1, "one double of 2^16 lanes")):
+        pp = tuple(x_[:, :lanes].contiguous() for x_ in p)
+        want = ec.ec_double_plain(pp, FP2_LM_PLAIN, times)
+        got = ec.ec_double(pp, times)
+        err = max(int((a.long() - b.long()).abs().max().item())
+                  for a, b in zip(got, want))
+        check(err == 0, f"ec_double_g2 x{times} on {lanes} lanes != plain")
+        bms, by = bound_ms(6 * lanes * 48 * 4,
+                           lanes * times * EC_DOUBLE_OPS_G2)
+        e = dict(max_abs_err=err, shape=[48, lanes], times=times,
+                 ms=graph_ms(torch, lambda: ec.ec_double(pp, times), reps),
+                 call_ms=cuda_ms(torch, lambda: ec.ec_double(pp, times),
+                                 reps),
+                 plain_ms=cuda_ms(torch, lambda: ec.ec_double_plain(
+                     pp, FP2_LM_PLAIN, times), 1),
+                 bound_ms=bms, bound_by=by)
+        if "ec_double_g2" not in res:
+            e["check"] = ("bit-exact vs plain on the Horner fold's run and "
+                          "on 2^16 lanes x 1")
+            e["other_shapes"] = {}
+            res["ec_double_g2"] = e
+        else:
+            res["ec_double_g2"]["other_shapes"][name] = e
+    r = check_bucket(torch, *cap["row"], reps)
+    r["check"] = ("affine-equal in every lane of the G2 MSM's first row, "
+                  "the same limbs on two launches")
+    res["bucket_scan_g2"] = r
+    r = check_window(torch, cap["window"], reps)
+    r["segment"] = seg
+    r["check"] = (f"affine-equal to the plain route on the G2 MSM's first "
+                  f"buckets at s = {seg}, the same limbs on two launches")
+    res["window_sum_g2"] = r
+    for name, r in res.items():
+        say_card(f"[{name} {r['shape']}] ok, {r['check']}: {r['ms']:.4f} ms "
+                 f"on the card, {r['call_ms']:.4f} ms a call (plain "
+                 f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
+                 f"{r['bound_by']})")
+    return res
+
+
 def msm_batch_path(torch, ts, paths, say_card, k: int = 16):
     """msm_batch with k seeded scalar rows over the n = 4096 Lagrange SRS
     points against k calls of msm, in affine form.  Returns the first B3
@@ -2197,6 +2351,7 @@ def main() -> int:
     windowed_path(torch, ts, say_card)
     pairing_path(torch, ts.device, say_card)
     g2_msm_path(torch, ts.device, say_card)
+    results.update(g2_kernels_path(torch, paths, say_card, REPS))
     (pts, seg), win, _ = msm_batch_path(torch, ts, paths, say_card)
     w = results["window_sum"]["other_shapes"]["msm_batch"] = check_window(
         torch, win, REPS)
@@ -2315,13 +2470,29 @@ def main() -> int:
         "window_sum": ("src/tpukzg_torch/csrc/bucket.cu",
                        "src/tpukzg/pallas/bucket.py:291 and the tree sum "
                        "of src/tpukzg/msm/pippenger_lm.py:74"),
+        "ec_add_g2": ("src/tpukzg_torch/csrc/ec.cu",
+                      "none: G2 is tensor code in the JAX package "
+                      "(src/tpukzg/curve/weierstrass.py)"),
+        "ec_double_g2": ("src/tpukzg_torch/csrc/ec.cu",
+                         "none: G2 is tensor code in the JAX package "
+                         "(src/tpukzg/curve/weierstrass.py)"),
+        "bucket_scan_g2": ("src/tpukzg_torch/csrc/bucket.cu",
+                           "none: the JAX package's G2 MSM is tensor code "
+                           "(src/tpukzg/msm/pippenger.py)"),
+        "window_sum_g2": ("src/tpukzg_torch/csrc/bucket.cu",
+                          "none: the JAX package's G2 MSM is tensor code "
+                          "(src/tpukzg/msm/pippenger.py)"),
     }
     # the path whose launches each entry reports; the counter name
     path_of = {"montmul_pow_fr": ("proof_batch", "montmul_pow_fr"),
                "bucket_scan_fixed": ("commit_batch", "bucket_scan"),
                "ntt": ("coeff", "ntt"),
                "bucket_scan_msm": ("msm_2^20", "bucket_scan"),
-               "bucket_scan_msm_batch": ("msm_batch", "bucket_scan")}
+               "bucket_scan_msm_batch": ("msm_batch", "bucket_scan"),
+               "ec_add_g2": ("g2_msm", "ec_add_g2"),
+               "ec_double_g2": ("g2_msm", "ec_double_g2"),
+               "bucket_scan_g2": ("g2_msm", "bucket_scan_g2"),
+               "window_sum_g2": ("g2_msm", "window_sum_g2")}
     regs = {"montmul_fp": ptxas["montmul.cu"],
             "montmul_fr": ptxas["montmul.cu"],
             "montmul_pow_fp": ptxas["montmul.cu"],
@@ -2332,6 +2503,9 @@ def main() -> int:
             "bucket_scan_msm": ptxas["bucket.cu"],
             "bucket_scan_msm_batch": ptxas["bucket.cu"],
             "window_sum": ptxas["bucket.cu"],
+            "ec_add_g2": ptxas["ec.cu"], "ec_double_g2": ptxas["ec.cu"],
+            "bucket_scan_g2": ptxas["bucket.cu"],
+            "window_sum_g2": ptxas["bucket.cu"],
             "fractree": ptxas["fractree.cu"], "ntt": ptxas["ntt.cu"]}
     kernels = []
     for name, (src, repl) in meta.items():

@@ -45,29 +45,40 @@
 //
 // Lanes are not padded: a run or chunk stops at the row's length.
 // Offsets into the (24, g, n) coordinates are 64-bit.
+//
+// G2: every kernel here is a template on the curve (ec.cuh's traits G1,
+// G2) under its own name: scan_local, ..., window_sum_join for G1, as
+// they were, and scan_local_g2, ..., window_sum_join_g2 for G2, whose
+// coordinates are (48, g, n) (c0's 24 limbs, then c1's).  A G2 point is
+// 72 words and its add's temporaries 156 more, all in shared memory, so
+// a G2 block takes 154 KB (the scans) or 190 KB (the window sum) and an
+// SM holds one; its add is about 3.2 G1 adds of products.  In the G2
+// window sum, thread k of the block doubles U_k (ec_double_g2, one
+// thread a point) where G1 runs quad k of warp 0.
 #include "ec.cuh"
 
 namespace {
 
 constexpr int kT = 128;
-constexpr int kW = 36;
 constexpr int32_t kSentinel = 0x7FFFFFF0;
 
-// Shared memory of every kernel here, word-major (word w of thread t at
-// w * kT + t): two point buffers, ec_add's scratch, one key per thread,
-// and a carried point with its key.
+// Shared memory of every scan kernel here, word-major (word w of thread
+// t at w * kT + t): two point buffers of C::kW words a thread, the add's
+// scratch, one key per thread, and a carried point with its key.
+template <class C>
 struct Smem {
+  static constexpr int kW = C::kW;
   uint32_t* buf;      // buffer b at buf + b * kW * kT
-  uint32_t* scratch;  // 24 words a thread
+  uint32_t* scratch;  // C::kScratch words a thread
   int32_t* key;
   uint32_t* carry;    // kW words
   int32_t* carry_key;
   __device__ __forceinline__ explicit Smem(uint32_t* s)
       : buf(s),
         scratch(s + 2 * kW * kT),
-        key((int32_t*)(s + (2 * kW + 24) * kT)),
-        carry(s + (2 * kW + 25) * kT),
-        carry_key((int32_t*)(s + (2 * kW + 25) * kT + kW)) {}
+        key((int32_t*)(s + (2 * kW + C::kScratch) * kT)),
+        carry(s + (2 * kW + C::kScratch + 1) * kT),
+        carry_key((int32_t*)(s + (2 * kW + C::kScratch + 1) * kT + kW)) {}
   __device__ __forceinline__ tk::Words point(int b, int t) const {
     return tk::Words{buf + b * kW * kT + t, kT};
   }
@@ -75,13 +86,17 @@ struct Smem {
     return tk::Words{scratch + threadIdx.x, kT};
   }
 };
-constexpr int kSmemBytes = ((2 * kW + 25) * kT + kW + 1) * 4;
+template <class C>
+constexpr int smem_bytes() {
+  return ((2 * C::kW + C::kScratch + 1) * kT + C::kW + 1) * 4;
+}
 
 // Segmented inclusive Hillis-Steele over the kT points of buffer 0,
 // keyed by sm.key; `live` marks this thread's element as real (dead
 // ones sit after every live one).  Returns the buffer that holds the
 // result.  Begins and ends with a barrier.
-__device__ __forceinline__ int block_scan(const Smem& sm, bool live) {
+template <class C>
+__device__ __forceinline__ int block_scan(const Smem<C>& sm, bool live) {
   const int t = threadIdx.x;
   int cur = 0;
   __syncthreads();
@@ -91,27 +106,33 @@ __device__ __forceinline__ int block_scan(const Smem& sm, bool live) {
     if (!__syncthreads_or(hit)) break;
     const tk::Words src = sm.point(cur, t), dst = sm.point(cur ^ 1, t);
     if (hit)
-      tk::ec_add(dst, src, sm.point(cur, t - d), sm.work());
+      C::add(dst, src, sm.point(cur, t - d), sm.work());
     else
-      dst.copy_from(src);
+      C::copy(dst, src);
     cur ^= 1;
   }
   __syncthreads();
   return cur;
 }
 
-// Coordinates are limb-major (24, g, n) int32 16-bit limbs; keys (g, n).
-// agg: (36, g * nch) words, the chunk totals; agg_key: (g * nch) their
-// last keys.
-__global__ void __launch_bounds__(kT, 4)
-scan_local(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-           int32_t* __restrict__ oz, const int32_t* __restrict__ x,
-           const int32_t* __restrict__ y, const int32_t* __restrict__ z,
-           const int32_t* __restrict__ keys, uint32_t* __restrict__ agg,
-           int32_t* __restrict__ agg_key, long long g, long long n, int runs,
-           long long nch) {
+// Coordinates are limb-major (24, g, n) int32 16-bit limbs (G2: 48);
+// keys (g, n).  agg: (C::kW, g * nch) words, the chunk totals; agg_key:
+// (g * nch) their last keys.
+#define SCAN_LOCAL_ARGS                                                     \
+  int32_t *__restrict__ ox, int32_t *__restrict__ oy,                       \
+      int32_t *__restrict__ oz, const int32_t *__restrict__ x,              \
+      const int32_t *__restrict__ y, const int32_t *__restrict__ z,         \
+      const int32_t *__restrict__ keys, uint32_t *__restrict__ agg,         \
+      int32_t *__restrict__ agg_key, long long g, long long n, int runs,    \
+      long long nch
+#define SCAN_LOCAL_PASS ox, oy, oz, x, y, z, keys, agg, agg_key, g, n, runs, nch
+
+template <class C>
+__device__ __forceinline__ void scan_local_body(SCAN_LOCAL_ARGS) {
+  using Out = typename C::Out;
+  constexpr int kW = C::kW;
   extern __shared__ uint32_t smem[];
-  const Smem sm(smem);
+  const Smem<C> sm(smem);
   const int t = threadIdx.x;
   const long long b = blockIdx.x, m = g * nch;
   const long long c0 = (b % nch) * kT * runs;
@@ -129,15 +150,15 @@ scan_local(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
     const int32_t k = keys[off];
     if (l == l0) first = k;
     if (k == prev) {
-      tk::load_point(lane, x + off, y + off, z + off, ls);
-      tk::ec_add(acc, acc, lane, sm.work());
+      C::load(lane, x + off, y + off, z + off, ls);
+      C::add(acc, acc, lane, sm.work());
     } else {
-      tk::load_point(acc, x + off, y + off, z + off, ls);
+      C::load(acc, x + off, y + off, z + off, ls);
     }
-    tk::Limbs{ox + off, oy + off, oz + off, ls}.store(acc);
+    Out{ox + off, oy + off, oz + off, ls}.store(acc);
     prev = k;
   }
-  if (l0 == l1) acc.set_inf();
+  if (l0 == l1) C::set_inf(acc);
   sm.key[t] = prev;
 
   // 2. the block's run totals, segmented by last key
@@ -151,12 +172,12 @@ scan_local(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
 #pragma unroll 1
     for (int l = l0; l < l1 && keys[base + l] == first; ++l) {
       const long long off = base + l;
-      const tk::Limbs out{ox + off, oy + off, oz + off, ls};
+      const Out out{ox + off, oy + off, oz + off, ls};
       if (l == l1 - 1) {
         out.store(mine);
       } else {
-        tk::load_point(tmp, ox + off, oy + off, oz + off, ls);
-        tk::ec_add(out, pre, tmp, sm.work());
+        C::load(tmp, ox + off, oy + off, oz + off, ls);
+        C::add(out, pre, tmp, sm.work());
       }
     }
   }
@@ -167,18 +188,28 @@ scan_local(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
   if (t == 0) agg_key[b] = sm.key[tl];
 }
 
+__global__ void __launch_bounds__(kT, 4) scan_local(SCAN_LOCAL_ARGS) {
+  scan_local_body<tk::G1>(SCAN_LOCAL_PASS);
+}
+
+__global__ void __launch_bounds__(kT, 1) scan_local_g2(SCAN_LOCAL_ARGS) {
+  scan_local_body<tk::G2>(SCAN_LOCAL_PASS);
+}
+
 // One block per row: agg[:, row * nch + c] <- the segmented inclusive
 // scan of the row's chunk totals keyed by agg_key.
-__global__ void __launch_bounds__(kT)
-scan_carry(uint32_t* __restrict__ agg, const int32_t* __restrict__ agg_key,
-           long long g, long long nch) {
+template <class C>
+__device__ __forceinline__ void scan_carry_body(
+    uint32_t* __restrict__ agg, const int32_t* __restrict__ agg_key,
+    long long g, long long nch) {
+  constexpr int kW = C::kW;
   extern __shared__ uint32_t smem[];
-  const Smem sm(smem);
+  const Smem<C> sm(smem);
   const int t = threadIdx.x;
   const long long m = g * nch;
   const tk::Words cw{sm.carry, 1};
   if (t == 0) {
-    cw.set_inf();
+    C::set_inf(cw);
     *sm.carry_key = kSentinel;
   }
 #pragma unroll 1
@@ -195,7 +226,7 @@ scan_carry(uint32_t* __restrict__ agg, const int32_t* __restrict__ agg_key,
     const int cur = block_scan(sm, t < len);
     const tk::Words s = sm.point(cur, t);
     if (t < len) {
-      if (sm.key[t] == *sm.carry_key) tk::ec_add(s, cw, s, sm.work());
+      if (sm.key[t] == *sm.carry_key) C::add(s, cw, s, sm.work());
 #pragma unroll 4
       for (int w = 0; w < kW; ++w)
         agg[w * m + i] = sm.buf[cur * kW * kT + w * kT + t];
@@ -207,15 +238,33 @@ scan_carry(uint32_t* __restrict__ agg, const int32_t* __restrict__ agg_key,
   }
 }
 
+__global__ void __launch_bounds__(kT)
+scan_carry(uint32_t* __restrict__ agg, const int32_t* __restrict__ agg_key,
+           long long g, long long nch) {
+  scan_carry_body<tk::G1>(agg, agg_key, g, nch);
+}
+
+__global__ void __launch_bounds__(kT)
+scan_carry_g2(uint32_t* __restrict__ agg,
+              const int32_t* __restrict__ agg_key, long long g,
+              long long nch) {
+  scan_carry_body<tk::G2>(agg, agg_key, g, nch);
+}
+
 // grid = g x (nch - 1): chunk c >= 1 of each row.
-__global__ void __launch_bounds__(kT, 4)
-scan_fixup(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-           int32_t* __restrict__ oz, const int32_t* __restrict__ keys,
-           const uint32_t* __restrict__ agg,
-           const int32_t* __restrict__ agg_key, long long g, long long n,
-           int runs, long long nch) {
+#define SCAN_FIXUP_ARGS                                                     \
+  int32_t *__restrict__ ox, int32_t *__restrict__ oy,                       \
+      int32_t *__restrict__ oz, const int32_t *__restrict__ keys,           \
+      const uint32_t *__restrict__ agg,                                     \
+      const int32_t *__restrict__ agg_key, long long g, long long n,        \
+      int runs, long long nch
+#define SCAN_FIXUP_PASS ox, oy, oz, keys, agg, agg_key, g, n, runs, nch
+
+template <class C>
+__device__ __forceinline__ void scan_fixup_body(SCAN_FIXUP_ARGS) {
+  constexpr int kW = C::kW;
   extern __shared__ uint32_t smem[];
-  const Smem sm(smem);
+  const Smem<C> sm(smem);
   const int t = threadIdx.x;
   const long long row = blockIdx.x / (nch - 1);
   const long long c = blockIdx.x % (nch - 1) + 1;
@@ -233,10 +282,18 @@ scan_fixup(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
 #pragma unroll 1
   for (int l = l0; l < l1 && keys[base + l] == first; ++l) {
     const long long off = base + l;
-    tk::load_point(tmp, ox + off, oy + off, oz + off, ls);
-    tk::ec_add(tk::Limbs{ox + off, oy + off, oz + off, ls}, cw, tmp,
-               sm.work());
+    C::load(tmp, ox + off, oy + off, oz + off, ls);
+    C::add(typename C::Out{ox + off, oy + off, oz + off, ls}, cw, tmp,
+           sm.work());
   }
+}
+
+__global__ void __launch_bounds__(kT, 4) scan_fixup(SCAN_FIXUP_ARGS) {
+  scan_fixup_body<tk::G1>(SCAN_FIXUP_PASS);
+}
+
+__global__ void __launch_bounds__(kT, 1) scan_fixup_g2(SCAN_FIXUP_ARGS) {
+  scan_fixup_body<tk::G2>(SCAN_FIXUP_PASS);
 }
 
 // ---------------------------------------------------------------------
@@ -277,9 +334,14 @@ scan_fixup(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
 // doublings, 0.93 ms on an H100 against 2.85 ms for the route replaced.
 // Shared memory: three point buffers (P, Q, a loaded bucket) and
 // ec_add's scratch, 66 KB a block, so __launch_bounds__(128, 3).
-constexpr int kWsSmemBytes = (3 * kW + 24) * kT * 4;
+template <class C>
+constexpr int ws_smem_bytes() {
+  return (3 * C::kW + C::kScratch) * kT * 4;
+}
 
+template <class C>
 struct WsSmem {
+  static constexpr int kW = C::kW;
   uint32_t* s;
   __device__ __forceinline__ tk::Words p(int t) const {
     return tk::Words{s + t, kT};
@@ -302,7 +364,8 @@ struct WsSmem {
 // The block's items t < 2^levels (P slot t: T_t; Q slot t: A_t), item t
 // the range of 2^lg buckets from t 2^lg -> P slot 0: sum T_t; Q slot 0:
 // sum A_t + [2^lg] sum_t t T_t.  Every thread of the block calls it.
-__device__ __forceinline__ void block_join(const WsSmem& sm, int levels,
+template <class C>
+__device__ __forceinline__ void block_join(const WsSmem<C>& sm, int levels,
                                            int lg) {
   const int x = threadIdx.x;
   // 1. level j joins nodes of 2^j items: Q and P of the left node take
@@ -317,14 +380,20 @@ __device__ __forceinline__ void block_join(const WsSmem& sm, int levels,
       const int a = x % per, o = a < 2 ? 0 : 1 << (a - 2);
       const int t0 = (x / per) << (j + 1), t1 = t0 + (1 << j);
       const tk::Words d = a == 0 ? sm.q(t0) : sm.p(t0 + o);
-      tk::ec_add(d, d, a == 0 ? sm.q(t1) : sm.p(t1 + o), sm.work());
+      C::add(d, d, a == 0 ? sm.q(t1) : sm.p(t1 + o), sm.work());
     }
   }
   __syncthreads();
   // 2. D_k = [2^(lg + k)] U_k in place, quad k of warp 0; the quads past
-  // the last U double P slot 0 and keep nothing
+  // the last U double P slot 0 and keep nothing (G2: thread k, alone)
   const int most = lg + levels - 1;
-  if (levels > 0 && most > 0 && x < 32) {
+  if constexpr (!C::kQuad) {
+    if (x < levels) {
+      const tk::Words u = sm.p(1 << x);
+#pragma unroll 1
+      for (int i = 0; i < lg + x; ++i) C::dbl(u, sm.work());
+    }
+  } else if (levels > 0 && most > 0 && x < 32) {
     const int k = x >> 2, r = x & 3;
     const tk::Words u = sm.p(k < levels ? 1 << k : 0);
     uint32_t X[12], Y[12], Z[12];
@@ -347,19 +416,24 @@ __device__ __forceinline__ void block_join(const WsSmem& sm, int levels,
   for (int h = 1; h <= levels; h <<= 1) {
     const int i = 2 * h * x;
     if (i + h <= levels)
-      tk::ec_add(sm.term(i), sm.term(i), sm.term(i + h), sm.work());
+      C::add(sm.term(i), sm.term(i), sm.term(i + h), sm.work());
     __syncthreads();
   }
 }
 
-// Bucket coordinates (24, g, nb) limb-major int32 16-bit limbs; agg:
-// (72, g * nblk) words, the blocks' T (words 0..35) and A (36..71).
-__global__ void __launch_bounds__(kT, 3)
-window_sum(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-           const int32_t* __restrict__ z, uint32_t* __restrict__ agg,
-           long long g, long long nb, int lg, long long nblk, int levels) {
+// Bucket coordinates (24, g, nb) limb-major int32 16-bit limbs (G2: 48);
+// agg: (2 C::kW, g * nblk) words, the blocks' T (words 0..kW - 1) and A.
+#define WINDOW_SUM_ARGS                                                     \
+  const int32_t *__restrict__ x, const int32_t *__restrict__ y,             \
+      const int32_t *__restrict__ z, uint32_t *__restrict__ agg,            \
+      long long g, long long nb, int lg, long long nblk, int levels
+#define WINDOW_SUM_PASS x, y, z, agg, g, nb, lg, nblk, levels
+
+template <class C>
+__device__ __forceinline__ void window_sum_body(WINDOW_SUM_ARGS) {
+  constexpr int kW = C::kW;
   extern __shared__ uint32_t smem[];
-  const WsSmem sm{smem};
+  const WsSmem<C> sm{smem};
   const int t = threadIdx.x;
   const long long row = blockIdx.x / nblk;
   const long long lo = ((blockIdx.x % nblk) * kT + t) << lg;
@@ -367,17 +441,17 @@ window_sum(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
   const tk::Words R = sm.p(t), A = sm.q(t), S = sm.lane(t);
   if (lo < hi) {
     const long long top = row * nb + hi - 1;
-    tk::load_point(R, x + top, y + top, z + top, ls);
-    A.copy_from(R);
+    C::load(R, x + top, y + top, z + top, ls);
+    C::copy(A, R);
 #pragma unroll 1
     for (long long off = top - 1; off >= row * nb + lo; --off) {
-      tk::load_point(S, x + off, y + off, z + off, ls);
-      tk::ec_add(R, R, S, sm.work());
-      tk::ec_add(A, A, R, sm.work());
+      C::load(S, x + off, y + off, z + off, ls);
+      C::add(R, R, S, sm.work());
+      C::add(A, A, R, sm.work());
     }
   } else {
-    R.set_inf();
-    A.set_inf();
+    C::set_inf(R);
+    C::set_inf(A);
   }
   block_join(sm, levels, lg);
   const long long m = g * nblk;
@@ -387,14 +461,27 @@ window_sum(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
   }
 }
 
+__global__ void __launch_bounds__(kT, 3) window_sum(WINDOW_SUM_ARGS) {
+  window_sum_body<tk::G1>(WINDOW_SUM_PASS);
+}
+
+__global__ void __launch_bounds__(kT, 1) window_sum_g2(WINDOW_SUM_ARGS) {
+  window_sum_body<tk::G2>(WINDOW_SUM_PASS);
+}
+
 // One block a row: its nblk <= 128 block pairs, each a range of 2^lg
-// buckets, -> the row's A in (24, g) limbs.
-__global__ void __launch_bounds__(kT, 3)
-window_sum_join(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                int32_t* __restrict__ oz, const uint32_t* __restrict__ agg,
-                long long g, long long nblk, int lg, int levels) {
+// buckets, -> the row's A in (24, g) limbs (G2: 48).
+#define WINDOW_JOIN_ARGS                                                    \
+  int32_t *__restrict__ ox, int32_t *__restrict__ oy,                       \
+      int32_t *__restrict__ oz, const uint32_t *__restrict__ agg,           \
+      long long g, long long nblk, int lg, int levels
+#define WINDOW_JOIN_PASS ox, oy, oz, agg, g, nblk, lg, levels
+
+template <class C>
+__device__ __forceinline__ void window_sum_join_body(WINDOW_JOIN_ARGS) {
+  constexpr int kW = C::kW;
   extern __shared__ uint32_t smem[];
-  const WsSmem sm{smem};
+  const WsSmem<C> sm{smem};
   const int t = threadIdx.x;
   const long long m = g * nblk;
   if (t < nblk) {
@@ -405,13 +492,23 @@ window_sum_join(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
       smem[(kW + w) * kT + t] = agg[(kW + w) * m + i];
     }
   } else {
-    sm.p(t).set_inf();
-    sm.q(t).set_inf();
+    C::set_inf(sm.p(t));
+    C::set_inf(sm.q(t));
   }
   block_join(sm, levels, lg);
   if (t == 0)
-    tk::Limbs{ox + blockIdx.x, oy + blockIdx.x, oz + blockIdx.x, g}.store(
-        sm.q(0));
+    typename C::Out{ox + blockIdx.x, oy + blockIdx.x, oz + blockIdx.x, g}
+        .store(sm.q(0));
+}
+
+__global__ void __launch_bounds__(kT, 3)
+window_sum_join(WINDOW_JOIN_ARGS) {
+  window_sum_join_body<tk::G1>(WINDOW_JOIN_PASS);
+}
+
+__global__ void __launch_bounds__(kT, 1)
+window_sum_join_g2(WINDOW_JOIN_ARGS) {
+  window_sum_join_body<tk::G2>(WINDOW_JOIN_PASS);
 }
 
 int ceil_log2(long long n) {
@@ -420,76 +517,123 @@ int ceil_log2(long long n) {
   return l;
 }
 
-}  // namespace
-
-// The window sums of g rows of nb bucket totals, thread segments of 2^lg
-// buckets: two launches.  agg: (72, g * nblk) words of scratch, nblk =
-// ceil(ceil(nb / 2^lg) / 128), which must be at most 128.  blocks (host
-// memory, 2 ints) receives the grids of window_sum and window_sum_join.
-extern "C" int tpukzg_window_sum(void* ox, void* oy, void* oz, const void* x,
-                                 const void* y, const void* z, void* agg,
-                                 long long g, long long nb, int lg,
-                                 int* blocks, void* stream) {
+// The window sums of g rows of nb bucket totals on curve C by the
+// kernels `sum` and `join`: two launches (the entry points below).
+template <class C, class Sum, class Join>
+int window_sum_launch(Sum sum, Join join, void* ox, void* oy, void* oz,
+                      const void* x, const void* y, const void* z, void* agg,
+                      long long g, long long nb, int lg, int* blocks,
+                      void* stream) {
   blocks[0] = blocks[1] = 0;
   const long long segs = (nb + (1LL << lg) - 1) >> lg;
   const long long nblk = (segs + kT - 1) / kT;
   if (g < 1 || nb < 1 || lg < 0 || nblk > kT)
     return (int)cudaErrorInvalidValue;
-  const void* kernels[] = {(const void*)window_sum,
-                           (const void*)window_sum_join};
+  constexpr int bytes = ws_smem_bytes<C>();
+  const void* kernels[] = {(const void*)sum, (const void*)join};
   for (const void* k : kernels) {
     cudaError_t err = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, kWsSmemBytes);
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const cudaStream_t st = (cudaStream_t)stream;
   blocks[0] = (int)(g * nblk);
-  window_sum<<<(unsigned)(g * nblk), kT, kWsSmemBytes, st>>>(
+  sum<<<(unsigned)(g * nblk), kT, bytes, st>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z,
       (uint32_t*)agg, g, nb, lg, nblk,
       ceil_log2(segs < kT ? segs : kT));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   blocks[1] = (int)g;
-  window_sum_join<<<(unsigned)g, kT, kWsSmemBytes, st>>>(
+  join<<<(unsigned)g, kT, bytes, st>>>(
       (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const uint32_t*)agg, g,
       nblk, lg + 7, ceil_log2(nblk));
   return (int)cudaGetLastError();
 }
 
-// Device kernels run: 1 when every row is one chunk, else 3.  blocks
-// (host memory, 3 ints) receives the grid of scan_local, scan_carry and
-// scan_fixup as launched, 0 for a kernel not launched.
-extern "C" int tpukzg_seg_scan(void* ox, void* oy, void* oz, const void* x,
-                               const void* y, const void* z, const void* keys,
-                               void* agg, void* agg_key, long long g,
-                               long long n, int runs, int* blocks,
-                               void* stream) {
+// The bucket scan on curve C by the kernels `local`, `carry` and `fixup`
+// (the entry points below).
+template <class C, class Local, class Carry, class Fixup>
+int seg_scan_launch(Local local, Carry carry, Fixup fixup, void* ox,
+                    void* oy, void* oz, const void* x, const void* y,
+                    const void* z, const void* keys, void* agg,
+                    void* agg_key, long long g, long long n, int runs,
+                    int* blocks, void* stream) {
   blocks[0] = blocks[1] = blocks[2] = 0;
-  const void* kernels[] = {(const void*)scan_local, (const void*)scan_carry,
-                           (const void*)scan_fixup};
+  constexpr int bytes = smem_bytes<C>();
+  const void* kernels[] = {(const void*)local, (const void*)carry,
+                           (const void*)fixup};
   for (const void* k : kernels) {
     cudaError_t err = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const cudaStream_t st = (cudaStream_t)stream;
   const long long nch = (n + (long long)kT * runs - 1) / ((long long)kT * runs);
   blocks[0] = (int)(g * nch);
-  scan_local<<<(unsigned)(g * nch), kT, kSmemBytes, st>>>(
+  local<<<(unsigned)(g * nch), kT, bytes, st>>>(
       (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const int32_t*)x,
       (const int32_t*)y, (const int32_t*)z, (const int32_t*)keys,
       (uint32_t*)agg, (int32_t*)agg_key, g, n, runs, nch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nch == 1) return (int)err;
   blocks[1] = (int)g;
-  scan_carry<<<(unsigned)g, kT, kSmemBytes, st>>>(
+  carry<<<(unsigned)g, kT, bytes, st>>>(
       (uint32_t*)agg, (const int32_t*)agg_key, g, nch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   blocks[2] = (int)(g * (nch - 1));
-  scan_fixup<<<(unsigned)(g * (nch - 1)), kT, kSmemBytes, st>>>(
+  fixup<<<(unsigned)(g * (nch - 1)), kT, bytes, st>>>(
       (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const int32_t*)keys,
       (const uint32_t*)agg, (const int32_t*)agg_key, g, n, runs, nch);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The window sums of g rows of nb bucket totals, thread segments of 2^lg
+// buckets: two launches.  agg: (72, g * nblk) words of scratch (G2: 144),
+// nblk = ceil(ceil(nb / 2^lg) / 128), which must be at most 128.  blocks
+// (host memory, 2 ints) receives the grids of window_sum and
+// window_sum_join.
+extern "C" int tpukzg_window_sum(void* ox, void* oy, void* oz, const void* x,
+                                 const void* y, const void* z, void* agg,
+                                 long long g, long long nb, int lg,
+                                 int* blocks, void* stream) {
+  return window_sum_launch<tk::G1>(window_sum, window_sum_join, ox, oy, oz,
+                                   x, y, z, agg, g, nb, lg, blocks, stream);
+}
+
+extern "C" int tpukzg_window_sum_g2(void* ox, void* oy, void* oz,
+                                    const void* x, const void* y,
+                                    const void* z, void* agg, long long g,
+                                    long long nb, int lg, int* blocks,
+                                    void* stream) {
+  return window_sum_launch<tk::G2>(window_sum_g2, window_sum_join_g2, ox, oy,
+                                   oz, x, y, z, agg, g, nb, lg, blocks,
+                                   stream);
+}
+
+// Device kernels run: 1 when every row is one chunk, else 3.  blocks
+// (host memory, 3 ints) receives the grid of scan_local, scan_carry and
+// scan_fixup as launched, 0 for a kernel not launched.  agg: (36, m)
+// words of chunk totals (G2: 72), agg_key (m), m = g * chunks a row.
+extern "C" int tpukzg_seg_scan(void* ox, void* oy, void* oz, const void* x,
+                               const void* y, const void* z, const void* keys,
+                               void* agg, void* agg_key, long long g,
+                               long long n, int runs, int* blocks,
+                               void* stream) {
+  return seg_scan_launch<tk::G1>(scan_local, scan_carry, scan_fixup, ox, oy,
+                                 oz, x, y, z, keys, agg, agg_key, g, n, runs,
+                                 blocks, stream);
+}
+
+extern "C" int tpukzg_seg_scan_g2(void* ox, void* oy, void* oz,
+                                  const void* x, const void* y,
+                                  const void* z, const void* keys, void* agg,
+                                  void* agg_key, long long g, long long n,
+                                  int runs, int* blocks, void* stream) {
+  return seg_scan_launch<tk::G2>(scan_local_g2, scan_carry_g2, scan_fixup_g2,
+                                 ox, oy, oz, x, y, z, keys, agg, agg_key, g,
+                                 n, runs, blocks, stream);
 }

@@ -1,6 +1,7 @@
 // B2 launcher: elementwise complete G1 addition, one thread per point;
 // B6 launchers: a run of complete G1 doublings, one thread per point or
-// four (at the end of this file).
+// four; and their G2 instances, one thread a point (at the end of this
+// file).
 //
 // A thin launcher around the device function ec_add of ec.cuh (which
 // replaces tpukzg/pallas/ec.py::ec_add inside the bucket-scan kernel),
@@ -111,6 +112,61 @@ ec_double_quad_kernel(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
   tk::store_limbs<tk::FpT>((q == 0 ? ox : (q == 1 ? oy : oz)) + off, ls, w);
 }
 
+// G2 (ec.cuh's ec_add_g2 and ec_double_g2): a thread stages its points
+// and every Fp2 temporary in shared memory, word-major.  An add takes
+// 300 words a thread (two points, 156 of scratch), a doubling 180 (the
+// point, 108 of scratch), so blocks of 64 threads: 75 KB for the add
+// (three blocks an SM, with the opt-in), 45 KB for the doubling.  Limb
+// j of element i at i * es + j * ls, j < 48 (c0's 24 limbs, then c1's).
+constexpr int kThreadsG2 = 64;
+constexpr int kSmemAddG2 =
+    (2 * tk::kG2Words + tk::kG2Scratch) * kThreadsG2 * 4;
+constexpr int kDoubleScratchG2 = 4 * 24 + 12;
+constexpr int kSmemDoubleG2 =
+    (tk::kG2Words + kDoubleScratchG2) * kThreadsG2 * 4;
+static_assert(kSmemDoubleG2 <= 48 * 1024, "ec_double_g2 needs the opt-in");
+
+__global__ void __launch_bounds__(kThreadsG2)
+ec_add_g2_kernel(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                 int32_t* __restrict__ oz, const int32_t* __restrict__ x1,
+                 const int32_t* __restrict__ y1,
+                 const int32_t* __restrict__ z1,
+                 const int32_t* __restrict__ x2,
+                 const int32_t* __restrict__ y2,
+                 const int32_t* __restrict__ z2, long long n, long long es,
+                 long long ls) {
+  extern __shared__ uint32_t smem[];
+  const long long i = (long long)blockIdx.x * kThreadsG2 + threadIdx.x;
+  if (i >= n) return;
+  const long long off = i * es;
+  uint32_t* mine = smem + threadIdx.x;
+  const tk::Words p{mine, kThreadsG2};
+  const tk::Words q{mine + tk::kG2Words * kThreadsG2, kThreadsG2};
+  const tk::Words w{mine + 2 * tk::kG2Words * kThreadsG2, kThreadsG2};
+  tk::load_point_g2(p, x1 + off, y1 + off, z1 + off, ls);
+  tk::load_point_g2(q, x2 + off, y2 + off, z2 + off, ls);
+  tk::ec_add_g2(tk::Limbs2{ox + off, oy + off, oz + off, ls}, p, q, w);
+}
+
+__global__ void __launch_bounds__(kThreadsG2)
+ec_double_g2_kernel(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                    int32_t* __restrict__ oz, const int32_t* __restrict__ x,
+                    const int32_t* __restrict__ y,
+                    const int32_t* __restrict__ z, long long n,
+                    long long es, long long ls, int times) {
+  extern __shared__ uint32_t smem[];
+  const long long i = (long long)blockIdx.x * kThreadsG2 + threadIdx.x;
+  if (i >= n) return;
+  const long long off = i * es;
+  uint32_t* mine = smem + threadIdx.x;
+  const tk::Words p{mine, kThreadsG2};
+  const tk::Words w{mine + tk::kG2Words * kThreadsG2, kThreadsG2};
+  tk::load_point_g2(p, x + off, y + off, z + off, ls);
+#pragma unroll 1
+  for (int t = 0; t < times; ++t) tk::ec_double_g2(p, w);
+  tk::Limbs2{ox + off, oy + off, oz + off, ls}.store(p);
+}
+
 }  // namespace
 
 extern "C" int tpukzg_ec_add(void* ox, void* oy, void* oz, const void* x1,
@@ -150,5 +206,35 @@ extern "C" int tpukzg_ec_double(void* ox, void* oy, void* oz, const void* x,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpukzg_ec_add_g2(void* ox, void* oy, void* oz, const void* x1,
+                                const void* y1, const void* z1,
+                                const void* x2, const void* y2,
+                                const void* z2, long long n, long long es,
+                                long long ls, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ec_add_g2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemAddG2);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((n + kThreadsG2 - 1) / kThreadsG2);
+  ec_add_g2_kernel<<<blocks, kThreadsG2, kSmemAddG2, (cudaStream_t)stream>>>(
+      (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const int32_t*)x1,
+      (const int32_t*)y1, (const int32_t*)z1, (const int32_t*)x2,
+      (const int32_t*)y2, (const int32_t*)z2, n, es, ls);
+  return (int)cudaGetLastError();
+}
+
+// [2^times] P for n G2 points, one thread a point.
+extern "C" int tpukzg_ec_double_g2(void* ox, void* oy, void* oz,
+                                   const void* x, const void* y,
+                                   const void* z, long long n, long long es,
+                                   long long ls, int times, void* stream) {
+  const unsigned blocks = (unsigned)((n + kThreadsG2 - 1) / kThreadsG2);
+  ec_double_g2_kernel<<<blocks, kThreadsG2, kSmemDoubleG2,
+                        (cudaStream_t)stream>>>(
+      (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const int32_t*)x,
+      (const int32_t*)y, (const int32_t*)z, n, es, ls, times);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // B2: complete projective addition on G1: y^2 = x^3 + 4 over Fp, and
-// B6: complete projective doubling (ec_double and ec_double_quad, at the end
-// of this file).
+// B6: complete projective doubling (ec_double and ec_double_quad); their
+// G2 instances over Fp2 (ec_add_g2, ec_double_g2), and the curve traits
+// G1 and G2 that the bucket kernels take (at the end of this file).
 //
 // Replaces the device function tpukzg/pallas/ec.py::ec_add (Renes-
 // Costello-Batina 2015, Alg. 7, a = 0, b3 = 3b = 12): 12 Montgomery
@@ -381,5 +382,470 @@ __device__ __forceinline__ void ec_double_quad(uint32_t* X, uint32_t* Y,
   add_mod<FpT>(Y, b, a);            // Y3
   add_mod<FpT>(X, X, X);            // X3 = 2 t6 X Y
 }
+
+
+// ---------------------------------------------------------------------
+// G2: y^2 = x^3 + 4 (1 + u) over Fp2 = Fp[u] / (u^2 + 1), b3 = 12 (1 + u).
+//
+// The same formulas as B2 and B6 (RCB15 Alg. 7 and 9, a = 0), each Fp2
+// product by Karatsuba: three Fp products, a0 b0, a1 b1 and
+// (a0 + a1)(b0 + b1); a square by two, (a0 + a1)(a0 - a1) and a0 a1.
+// Every field result is canonical, so each coordinate equals the plain
+// version's (kernels/ec.py over FP2_LM) bit for bit.
+//
+// A G2 point is 72 words, an add's temporaries six Fp2 values, so
+// neither fits in registers beside a product's working set: the point
+// lives in shared memory as a Words of six Fp elements (X.c0, X.c1,
+// Y.c0, Y.c1, Z.c0, Z.c1; Fp2 coordinate c is the Words at element 2c),
+// and so does every Fp2 temporary (kG2Scratch words a thread).
+//
+// What bounds a G2 kernel is the latency of one thread's chain of
+// products: a row of fp_mul is two carry chains of ~26 dependent
+// multiply-adds, and an SM holds only four warps of G2 points (their
+// shared memory), too few to hide it.  So the three products of an Fp2
+// product (two of a square) run as one fp_mul_n: each row issues the
+// products' chains together and the scheduler interleaves them, so an
+// Fp2 product costs about the latency of one Fp product, not three.
+constexpr int kG2Words = 72;
+// six Fp2 temporaries and one Fp operand (b0 + b1 of a product)
+constexpr int kG2Scratch = 6 * 24 + 12;
+
+// K independent products r[k] = a[k] b[k] R^-1 mod p, b[k] read from
+// shared memory: fp_mul's rows (the same PTX, held equal to fp_mul's by
+// tests/test_torch_g2_msm.py, so each result is bit-identical to
+// fp_mul's and utils/checked.py's shadow of fp_mul holds for it), the K
+// products' rows issued together.
+template <int K>
+__device__ __forceinline__ void fp_mul_n(uint32_t (&r)[K][12],
+                                         const uint32_t (&a)[K][12],
+                                         const Words (&b)[K]) {
+  uint32_t t[K][14];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int j = 0; j < 14; ++j) t[k][j] = 0;
+#pragma unroll 1
+  for (int i = 0; i < 12; ++i) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint32_t bi = b[k].p[i * b[k].stride];
+      asm("mad.lo.cc.u32 %0, %14, %26, %0;\n\t"
+          "madc.lo.cc.u32 %1, %15, %26, %1;\n\t"
+          "madc.lo.cc.u32 %2, %16, %26, %2;\n\t"
+          "madc.lo.cc.u32 %3, %17, %26, %3;\n\t"
+          "madc.lo.cc.u32 %4, %18, %26, %4;\n\t"
+          "madc.lo.cc.u32 %5, %19, %26, %5;\n\t"
+          "madc.lo.cc.u32 %6, %20, %26, %6;\n\t"
+          "madc.lo.cc.u32 %7, %21, %26, %7;\n\t"
+          "madc.lo.cc.u32 %8, %22, %26, %8;\n\t"
+          "madc.lo.cc.u32 %9, %23, %26, %9;\n\t"
+          "madc.lo.cc.u32 %10, %24, %26, %10;\n\t"
+          "madc.lo.cc.u32 %11, %25, %26, %11;\n\t"
+          "addc.cc.u32 %12, %12, 0;\n\t"
+          "addc.u32 %13, %13, 0;\n\t"
+          "mad.hi.cc.u32 %1, %14, %26, %1;\n\t"
+          "madc.hi.cc.u32 %2, %15, %26, %2;\n\t"
+          "madc.hi.cc.u32 %3, %16, %26, %3;\n\t"
+          "madc.hi.cc.u32 %4, %17, %26, %4;\n\t"
+          "madc.hi.cc.u32 %5, %18, %26, %5;\n\t"
+          "madc.hi.cc.u32 %6, %19, %26, %6;\n\t"
+          "madc.hi.cc.u32 %7, %20, %26, %7;\n\t"
+          "madc.hi.cc.u32 %8, %21, %26, %8;\n\t"
+          "madc.hi.cc.u32 %9, %22, %26, %9;\n\t"
+          "madc.hi.cc.u32 %10, %23, %26, %10;\n\t"
+          "madc.hi.cc.u32 %11, %24, %26, %11;\n\t"
+          "madc.hi.cc.u32 %12, %25, %26, %12;\n\t"
+          "addc.u32 %13, %13, 0;"
+          : "+r"(t[k][0]), "+r"(t[k][1]), "+r"(t[k][2]), "+r"(t[k][3]),
+            "+r"(t[k][4]), "+r"(t[k][5]), "+r"(t[k][6]), "+r"(t[k][7]),
+            "+r"(t[k][8]), "+r"(t[k][9]), "+r"(t[k][10]), "+r"(t[k][11]),
+            "+r"(t[k][12]), "+r"(t[k][13])
+          : "r"(a[k][0]), "r"(a[k][1]), "r"(a[k][2]), "r"(a[k][3]),
+            "r"(a[k][4]), "r"(a[k][5]), "r"(a[k][6]), "r"(a[k][7]),
+            "r"(a[k][8]), "r"(a[k][9]), "r"(a[k][10]), "r"(a[k][11]),
+            "r"(bi));
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint32_t m = t[k][0] * FpT::INV;
+      asm("mad.lo.cc.u32 %0, %14, 0xffffaaab, %0;\n\t"
+          "madc.lo.cc.u32 %0, %14, 0xb9feffff, %1;\n\t"
+          "madc.lo.cc.u32 %1, %14, 0xb153ffff, %2;\n\t"
+          "madc.lo.cc.u32 %2, %14, 0x1eabfffe, %3;\n\t"
+          "madc.lo.cc.u32 %3, %14, 0xf6b0f624, %4;\n\t"
+          "madc.lo.cc.u32 %4, %14, 0x6730d2a0, %5;\n\t"
+          "madc.lo.cc.u32 %5, %14, 0xf38512bf, %6;\n\t"
+          "madc.lo.cc.u32 %6, %14, 0x64774b84, %7;\n\t"
+          "madc.lo.cc.u32 %7, %14, 0x434bacd7, %8;\n\t"
+          "madc.lo.cc.u32 %8, %14, 0x4b1ba7b6, %9;\n\t"
+          "madc.lo.cc.u32 %9, %14, 0x397fe69a, %10;\n\t"
+          "madc.lo.cc.u32 %10, %14, 0x1a0111ea, %11;\n\t"
+          "addc.cc.u32 %11, %12, 0;\n\t"
+          "addc.u32 %12, %13, 0;\n\t"
+          "mad.hi.cc.u32 %0, %14, 0xffffaaab, %0;\n\t"
+          "madc.hi.cc.u32 %1, %14, 0xb9feffff, %1;\n\t"
+          "madc.hi.cc.u32 %2, %14, 0xb153ffff, %2;\n\t"
+          "madc.hi.cc.u32 %3, %14, 0x1eabfffe, %3;\n\t"
+          "madc.hi.cc.u32 %4, %14, 0xf6b0f624, %4;\n\t"
+          "madc.hi.cc.u32 %5, %14, 0x6730d2a0, %5;\n\t"
+          "madc.hi.cc.u32 %6, %14, 0xf38512bf, %6;\n\t"
+          "madc.hi.cc.u32 %7, %14, 0x64774b84, %7;\n\t"
+          "madc.hi.cc.u32 %8, %14, 0x434bacd7, %8;\n\t"
+          "madc.hi.cc.u32 %9, %14, 0x4b1ba7b6, %9;\n\t"
+          "madc.hi.cc.u32 %10, %14, 0x397fe69a, %10;\n\t"
+          "madc.hi.cc.u32 %11, %14, 0x1a0111ea, %11;\n\t"
+          "addc.u32 %12, %12, 0;\n\t"
+          "mov.u32 %13, 0;"
+          : "+r"(t[k][0]), "+r"(t[k][1]), "+r"(t[k][2]), "+r"(t[k][3]),
+            "+r"(t[k][4]), "+r"(t[k][5]), "+r"(t[k][6]), "+r"(t[k][7]),
+            "+r"(t[k][8]), "+r"(t[k][9]), "+r"(t[k][10]), "+r"(t[k][11]),
+            "+r"(t[k][12]), "+r"(t[k][13])
+          : "r"(m));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) cond_sub<FpT>(r[k], t[k], t[k][12]);
+}
+
+// An Fp2 operand read from shared memory: component k (0, 1).
+struct Fp2At {
+  Words a;
+  __device__ __forceinline__ void get(int k, uint32_t* w) const {
+    a.get(k, w);
+  }
+};
+
+// The sum of Fp2 coordinates i and j of a G2 point, read on the fly.
+struct Fp2Sum {
+  Words p;
+  int i, j;
+  __device__ __forceinline__ void get(int k, uint32_t* w) const {
+    p.get_sum(2 * i + k, 2 * j + k, w);
+  }
+};
+
+// (c0, c1) = a b in Fp2, b in shared memory (elements 0, 1), k one Fp
+// element of scratch, neither a nor b: a0 b0, a1 b1 and
+// (a0 + a1)(b0 + b1) as one fp_mul_n.
+template <class A>
+__device__ __forceinline__ void fp2_mul(uint32_t* c0, uint32_t* c1,
+                                        const A& a, const Words& b,
+                                        const Words& k) {
+  uint32_t x[3][12], y[3][12];
+  b.get_sum(0, 1, x[0]);
+  k.put(0, x[0]);                   // b0 + b1
+  a.get(0, x[0]);
+  a.get(1, x[1]);
+  add_mod<FpT>(x[2], x[0], x[1]);   // a0 + a1
+  const Words bs[3] = {b.at(0), b.at(1), k};
+  fp_mul_n<3>(y, x, bs);
+  sub_mod<FpT>(y[2], y[2], y[0]);
+  sub_mod<FpT>(c1, y[2], y[1]);
+  sub_mod<FpT>(c0, y[0], y[1]);
+}
+
+// (c0, c1) = a^2 in Fp2: ((a0 + a1)(a0 - a1), 2 a0 a1), as one
+// fp_mul_n of two; k as fp2_mul's.
+__device__ __forceinline__ void fp2_sqr(uint32_t* c0, uint32_t* c1,
+                                        const Words& a, const Words& k) {
+  uint32_t x[2][12], y[2][12];
+  a.get(0, x[1]);                   // a0
+  a.get(1, y[0]);
+  sub_mod<FpT>(y[1], x[1], y[0]);
+  k.put(0, y[1]);                   // a0 - a1
+  add_mod<FpT>(x[0], x[1], y[0]);   // a0 + a1
+  const Words bs[2] = {k, a.at(1)};
+  fp_mul_n<2>(y, x, bs);
+  copy<FpT>(c0, y[0]);
+  add_mod<FpT>(c1, y[1], y[1]);     // 2 a0 a1
+}
+
+__device__ __forceinline__ void fp2_put(const Words& r, const uint32_t* c0,
+                                        const uint32_t* c1) {
+  r.put(0, c0);
+  r.put(1, c1);
+}
+
+// (c0, c1) = 3b (c0, c1) = 12 (c0 - c1) + 12 (c0 + c1) u
+__device__ __forceinline__ void fp2_mul_b3(uint32_t* c0, uint32_t* c1) {
+  uint32_t t[12];
+  sub_mod<FpT>(t, c0, c1);
+  add_mod<FpT>(c1, c0, c1);
+  fp_mul_small12(c0, t);
+  fp_mul_small12(c1, c1);
+}
+
+// (c0, c1) -= the Fp2 values a and b in shared memory
+__device__ __forceinline__ void fp2_sub2(uint32_t* c0, uint32_t* c1,
+                                         const Words& a, const Words& b) {
+  uint32_t t[12];
+  a.get(0, t);
+  sub_mod<FpT>(c0, c0, t);
+  b.get(0, t);
+  sub_mod<FpT>(c0, c0, t);
+  a.get(1, t);
+  sub_mod<FpT>(c1, c1, t);
+  b.get(1, t);
+  sub_mod<FpT>(c1, c1, t);
+}
+
+// (c0, c1) += the Fp2 value a in shared memory
+__device__ __forceinline__ void fp2_add_from(uint32_t* c0, uint32_t* c1,
+                                             const Words& a) {
+  uint32_t t[12];
+  a.get(0, t);
+  add_mod<FpT>(c0, c0, t);
+  a.get(1, t);
+  add_mod<FpT>(c1, c1, t);
+}
+
+// Fp2 r = coordinates i + j of the point p
+__device__ __forceinline__ void fp2_put_sum(const Words& r, const Words& p,
+                                            int i, int j) {
+  uint32_t t[12];
+  p.get_sum(2 * i, 2 * j, t);
+  r.put(0, t);
+  p.get_sum(2 * i + 1, 2 * j + 1, t);
+  r.put(1, t);
+}
+
+__device__ __forceinline__ void g2_copy(const Words& d, const Words& s) {
+#pragma unroll 8
+  for (int w = 0; w < kG2Words; ++w) d.p[w * d.stride] = s.p[w * s.stride];
+}
+
+__device__ __forceinline__ void g2_set_inf(const Words& d) {
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    d.p[j * d.stride] = 0u;
+    d.p[(12 + j) * d.stride] = 0u;
+    d.p[(24 + j) * d.stride] = kFpOne[j];
+    d.p[(36 + j) * d.stride] = 0u;
+    d.p[(48 + j) * d.stride] = 0u;
+    d.p[(60 + j) * d.stride] = 0u;
+  }
+}
+
+// A G2 point in device memory: coordinates x, y, z of 48 16-bit limbs
+// (c0's 24, then c1's), limb i at i * ls.  Element e of the point (as
+// in shared memory) is coordinate e / 2, component e % 2.
+struct Limbs2 {
+  int32_t* x;
+  int32_t* y;
+  int32_t* z;
+  long long ls;
+  __device__ __forceinline__ void put(int e, const uint32_t* w) const {
+    int32_t* q = (e < 2 ? x : (e < 4 ? y : z)) + (e & 1) * 24 * ls;
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      q[0] = (int32_t)(w[j] & 0xffffu);
+      q[ls] = (int32_t)(w[j] >> 16);
+      q += 2 * ls;
+      asm volatile("" : "+l"(q));
+    }
+  }
+  __device__ __forceinline__ void store(const Words& s) const {
+    uint32_t w[12];
+#pragma unroll 1
+    for (int e = 0; e < 6; ++e) {
+      s.get(e, w);
+      put(e, w);
+    }
+  }
+};
+
+__device__ __forceinline__ void load_point_g2(const Words& d,
+                                              const int32_t* x,
+                                              const int32_t* y,
+                                              const int32_t* z,
+                                              long long ls) {
+#pragma unroll 1
+  for (int e = 0; e < 6; ++e) {
+    const int32_t* q = (e < 2 ? x : (e < 4 ? y : z)) + (e & 1) * 24 * ls;
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      d.p[(12 * e + j) * d.stride] =
+          ((uint32_t)q[0] & 0xffffu) | ((uint32_t)q[ls] << 16);
+      q += 2 * ls;
+      asm volatile("" : "+l"(q));
+    }
+  }
+}
+
+// r = p + q on G2 (RCB15 Alg. 7), w kG2Scratch words of scratch.  Every
+// read of p and q comes before the first write of r, so r may be p or q;
+// w must be neither.  R is Words or Limbs2.  The scratch's six Fp2 slots
+// hold, in the end, A = 3 X1 X2, B = z3 = Y1 Y2 + 3b Z1 Z2,
+// C = y3 = 3b (X1 Z2 + X2 Z1), D = Y1 Y2 - 3b Z1 Z2, E = X1 Y2 + X2 Y1
+// and F = Y1 Z2 + Y2 Z1.
+template <class R>
+__device__ __forceinline__ void ec_add_g2(const R& r, const Words& p,
+                                          const Words& q, const Words& w) {
+  const Words A = w.at(0), B = w.at(2), C = w.at(4), D = w.at(6);
+  const Words E = w.at(8), F = w.at(10), k = w.at(12);
+  uint32_t c0[12], c1[12];
+  fp2_mul(c0, c1, Fp2At{p.at(0)}, q.at(0), k);
+  fp2_put(A, c0, c1);               // X1 X2
+  fp2_mul(c0, c1, Fp2At{p.at(4)}, q.at(4), k);
+  fp2_put(B, c0, c1);               // Z1 Z2
+  fp2_put_sum(D, q, 0, 2);
+  fp2_mul(c0, c1, Fp2Sum{p, 0, 2}, D, k);
+  fp2_sub2(c0, c1, A, B);           // X1 Z2 + X2 Z1
+  fp2_mul_b3(c0, c1);
+  fp2_put(C, c0, c1);               // y3
+  fp2_mul(c0, c1, Fp2At{p.at(2)}, q.at(2), k);
+  fp2_put(D, c0, c1);               // Y1 Y2
+  fp2_put_sum(F, q, 0, 1);
+  fp2_mul(c0, c1, Fp2Sum{p, 0, 1}, F, k);
+  fp2_sub2(c0, c1, A, D);
+  fp2_put(E, c0, c1);               // X1 Y2 + X2 Y1
+  fp2_put_sum(F, q, 1, 2);
+  fp2_mul(c0, c1, Fp2Sum{p, 1, 2}, F, k);   // the last read of p and q
+  fp2_sub2(c0, c1, D, B);
+  fp2_put(F, c0, c1);               // Y1 Z2 + Y2 Z1
+  uint32_t u0[12], u1[12];
+#pragma unroll 1
+  for (int e = 0; e < 2; ++e) {
+    A.get(e, c0);
+    fp_mul_small3(c0, c0);
+    A.put(e, c0);                   // 3 X1 X2
+  }
+  B.get(0, c0);
+  B.get(1, c1);
+  fp2_mul_b3(c0, c1);               // 3b Z1 Z2
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    D.get(e, u0);
+    add_mod<FpT>(u1, u0, e ? c1 : c0);
+    B.put(e, u1);                   // z3
+    sub_mod<FpT>(u0, u0, e ? c1 : c0);
+    D.put(e, u0);                   // Y1 Y2 - 3b Z1 Z2
+  }
+  // X3 = E D - F C;  Y3 = D B + C A;  Z3 = B F + A E
+  fp2_mul(u0, u1, Fp2At{E}, D, k);
+  fp2_mul(c0, c1, Fp2At{F}, C, k);
+  sub_mod<FpT>(u0, u0, c0);
+  sub_mod<FpT>(u1, u1, c1);
+  r.put(0, u0);
+  r.put(1, u1);
+  fp2_mul(u0, u1, Fp2At{D}, B, k);
+  fp2_mul(c0, c1, Fp2At{C}, A, k);
+  add_mod<FpT>(u0, u0, c0);
+  add_mod<FpT>(u1, u1, c1);
+  r.put(2, u0);
+  r.put(3, u1);
+  fp2_mul(u0, u1, Fp2At{B}, F, k);
+  fp2_mul(c0, c1, Fp2At{A}, E, k);
+  add_mod<FpT>(u0, u0, c0);
+  add_mod<FpT>(u1, u1, c1);
+  r.put(4, u0);
+  r.put(5, u1);
+}
+
+// p = 2 p on G2 in place (RCB15 Alg. 9), w at least 108 words of
+// scratch (four Fp2 slots and one Fp operand), not p.  X, Y and Z are
+// read by the first four products; then p's words take 8 Y^2, Y^2 +
+// 3b Z^2 and the results.
+__device__ __forceinline__ void ec_double_g2(const Words& p,
+                                             const Words& w) {
+  const Words A = w.at(0), B = w.at(2), C = w.at(4), D = w.at(6);
+  const Words k = w.at(8);
+  const Words X = p.at(0), Y = p.at(2), Z = p.at(4);
+  uint32_t c0[12], c1[12];
+  fp2_mul(c0, c1, Fp2At{X}, Y, k);
+  fp2_put(A, c0, c1);               // X Y
+  fp2_mul(c0, c1, Fp2At{Y}, Z, k);
+  fp2_put(B, c0, c1);               // Y Z
+  fp2_sqr(c0, c1, Y, k);
+  fp2_put(C, c0, c1);               // Y^2
+  fp2_sqr(c0, c1, Z, k);            // Z^2: the last read of X, Y, Z
+  fp2_mul_b3(c0, c1);
+  fp2_put(D, c0, c1);               // 3b Z^2
+#pragma unroll 1
+  for (int e = 0; e < 2; ++e) {
+    uint32_t y2[12], t[12];
+    C.get(e, y2);
+    fp_mul_small8(t, y2);
+    X.put(e, t);                    // 8 Y^2 in X's words
+    D.get(e, t);
+    add_mod<FpT>(c0, y2, t);
+    Y.put(e, c0);                   // Y^2 + 3b Z^2 in Y's words
+    fp_mul_small3(t, t);
+    sub_mod<FpT>(y2, y2, t);
+    C.put(e, y2);                   // t6 = Y^2 - 9b Z^2
+  }
+  fp2_mul(c0, c1, Fp2At{B}, X, k);
+  fp2_put(Z, c0, c1);               // Z3 = 8 Y^3 Z
+  fp2_mul(c0, c1, Fp2At{D}, X, k);
+  fp2_put(B, c0, c1);               // 3b Z^2 8 Y^2
+  fp2_mul(c0, c1, Fp2At{C}, Y, k);  // t6 (Y^2 + 3b Z^2)
+  fp2_add_from(c0, c1, B);
+  fp2_put(Y, c0, c1);               // Y3
+  fp2_mul(c0, c1, Fp2At{C}, A, k);  // t6 X Y
+  add_mod<FpT>(c0, c0, c0);
+  add_mod<FpT>(c1, c1, c1);
+  fp2_put(X, c0, c1);               // X3 = 2 t6 X Y
+}
+
+// The curves the bucket kernels (bucket.cu) take: a point's words in
+// shared memory, the scratch its add takes, and its add, load, store,
+// copy and infinity.  G1 is B2 and B6 as above, G2 their Fp2 instances.
+struct G1 {
+  static constexpr int kW = 36;
+  static constexpr int kScratch = 24;
+  static constexpr bool kQuad = true;   // doublings by ec_double_quad
+  using Out = Limbs;
+  template <class R>
+  __device__ static __forceinline__ void add(const R& r, const Words& p,
+                                             const Words& q,
+                                             const Words& w) {
+    ec_add(r, p, q, w);
+  }
+  __device__ static __forceinline__ void load(const Words& d,
+                                              const int32_t* x,
+                                              const int32_t* y,
+                                              const int32_t* z,
+                                              long long ls) {
+    load_point(d, x, y, z, ls);
+  }
+  __device__ static __forceinline__ void copy(const Words& d,
+                                              const Words& s) {
+    d.copy_from(s);
+  }
+  __device__ static __forceinline__ void set_inf(const Words& d) {
+    d.set_inf();
+  }
+};
+
+struct G2 {
+  static constexpr int kW = kG2Words;
+  static constexpr int kScratch = kG2Scratch;
+  static constexpr bool kQuad = false;  // doublings by ec_double_g2
+  using Out = Limbs2;
+  template <class R>
+  __device__ static __forceinline__ void add(const R& r, const Words& p,
+                                             const Words& q,
+                                             const Words& w) {
+    ec_add_g2(r, p, q, w);
+  }
+  __device__ static __forceinline__ void load(const Words& d,
+                                              const int32_t* x,
+                                              const int32_t* y,
+                                              const int32_t* z,
+                                              long long ls) {
+    load_point_g2(d, x, y, z, ls);
+  }
+  __device__ static __forceinline__ void copy(const Words& d,
+                                              const Words& s) {
+    g2_copy(d, s);
+  }
+  __device__ static __forceinline__ void set_inf(const Words& d) {
+    g2_set_inf(d);
+  }
+  __device__ static __forceinline__ void dbl(const Words& p,
+                                             const Words& w) {
+    ec_double_g2(p, w);
+  }
+};
 
 }  // namespace tk

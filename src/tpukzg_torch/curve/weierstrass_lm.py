@@ -1,8 +1,10 @@
-"""Limb-major complete projective G1 group law (y^2 = x^3 + 4).
+"""Limb-major complete projective group law: G1 (y^2 = x^3 + 4 over Fp)
+and G2 (y^2 = x^3 + 4 (1 + u) over Fp2).
 
 Counterpart of ``tpukzg/curve/weierstrass_lm.py`` (and of
 ``curve/weierstrass.py:_normalize, _scalar_mul*``).  Coordinates are
-(L, *batch) int32 Montgomery limbs.  ``add`` and ``double`` go through
+(L, *batch) int32 Montgomery limbs: L = 24 on G1, 48 on G2 (c0's 24
+limbs, then c1's; ``field/limb_major.py``'s FP2_LM).  ``add`` and ``double`` go through
 the ec_add and ec_double kernels on the card (``kernels/ec.py``); over a
 plain field they are the tensor formulas.  ``scalar_mul`` runs the
 windowed ladder on the card (a step: one ec_double launch of w
@@ -15,19 +17,21 @@ from __future__ import annotations
 import torch
 
 from tpukzg_torch.curve.weierstrass import window_digits
-from tpukzg_torch.field.limb_major import FieldLM, FP_LM, FP_LM_PLAIN
+from tpukzg_torch.field.limb_major import (FP_LM, FP_LM_PLAIN, FP2_LM,
+                                           FP2_LM_PLAIN)
 from tpukzg_torch.kernels import ec as _ec
 from tpukzg_torch.kernels.ec import _bmul
 
 
 class CurveLM:
-    def __init__(self, field: FieldLM, b3_small: int = 12):
+    def __init__(self, field):
+        """field: FP_LM (G1) or FP2_LM (G2), or their plain versions;
+        its ``mul_b3`` is the curve's 3b."""
         self.F = field
-        self.b3_small = b3_small
 
     def inf(self, batch_shape, device):
         F = self.F
-        one = F.params.const("one_mont", device, torch.int32).reshape(
+        one = F.one(device).reshape(
             (F.L,) + (1,) * len(batch_shape)).expand((F.L,) + tuple(batch_shape))
         zero = torch.zeros((F.L,) + tuple(batch_shape), dtype=torch.int32,
                            device=device)
@@ -40,7 +44,7 @@ class CurveLM:
         return self.F.is_zero(p[2])
 
     def add(self, p, q):
-        if self.F.params.plain:
+        if self.F.plain:
             return _ec.ec_add_plain(p, q, self.F)
         return _ec.ec_add(p, q)
 
@@ -53,7 +57,7 @@ class CurveLM:
         card); t = 0 returns P."""
         if t == 0:
             return p
-        if self.F.params.plain:
+        if self.F.plain:
             return _ec.ec_double_plain(p, self.F, t)
         return _ec.ec_double(p, t)
 
@@ -75,7 +79,7 @@ class CurveLM:
         y2, x2, z2 = _bmul(F, [(p[1], p[1]), (p[0], p[0]), (p[2], p[2])])
         y2z, x3, z3 = _bmul(F, [(y2, p[2]), (x2, p[0]), (z2, p[2])])
         lhs = F.mul_small(y2z, 3)
-        rhs = F.add(F.mul_small(x3, 3), F.mul_small(z3, self.b3_small))
+        rhs = F.add(F.mul_small(x3, 3), F.mul_b3(z3))
         return F.eq(lhs, rhs) | self.is_inf(p)
 
     def reduce_sum_lanes(self, pts, axis: int):
@@ -163,3 +167,7 @@ class CurveLM:
 
 G1_LM = CurveLM(FP_LM)
 G1_LM_PLAIN = CurveLM(FP_LM_PLAIN)
+G2_LM = CurveLM(FP2_LM)
+G2_LM_PLAIN = CurveLM(FP2_LM_PLAIN)
+# The plain curve of each curve by its coordinates' limb count.
+PLAIN_CURVE = {24: G1_LM_PLAIN, 48: G2_LM_PLAIN}

@@ -123,13 +123,19 @@ _L = ctypes.c_longlong
 _TYPES = {"p": _P, "i": _I, "l": _L}
 
 
+_fns: dict = {}
+
+
 def fn(name: str, sig: str):
     """C entry point `name` whose arguments follow `sig` (p = pointer or
-    stream, i = int, l = 64-bit int); every entry point returns the
-    cudaError_t of its launch."""
-    f = getattr(lib(), name)
-    f.argtypes = [_TYPES[c] for c in sig]
-    f.restype = ctypes.c_int
+    stream, i = int, l = 64-bit int), bound once; every entry point
+    returns the cudaError_t of its launch."""
+    f = _fns.get(name)
+    if f is None:
+        f = getattr(lib(), name)
+        f.argtypes = [_TYPES[c] for c in sig]
+        f.restype = ctypes.c_int
+        _fns[name] = f
     return f
 
 

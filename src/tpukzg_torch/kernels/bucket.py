@@ -27,6 +27,12 @@ row, replaces ``suffix_scan_pallas`` and the tree sum of
 decomposition in tensor code, and the suffix scan then the tree sum its
 plain version.  The plain scans are the ``loop`` scans of
 ``msm/scan.py``.
+
+Every function here takes G1 coordinates (24, ...) or G2 coordinates
+(48, ...: c0's 24 limbs, then c1's) and picks the curve by the limb
+axis: the kernels' G2 instances (``csrc/bucket.cu``, ``*_g2``) are
+counted as ``bucket_scan_g2`` and ``window_sum_g2``, the plain versions
+run over G2_LM_PLAIN.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import ctypes
 
 import torch
 
-from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
+from tpukzg_torch.curve.weierstrass_lm import PLAIN_CURVE
 from tpukzg_torch.field.mont import I32
 from tpukzg_torch.kernels import _build
 from tpukzg_torch.msm import scan as _scan
@@ -43,33 +49,41 @@ from tpukzg_torch.msm import scan as _scan
 SENTINEL = 0x7FFFFFF0
 THREADS = 128          # threads a block; a chunk is THREADS * runs lanes
 
-_fn = None
-_ws_fn = None
 KERNELS = ("scan_local", "scan_carry", "scan_fixup")
 WS_KERNELS = ("window_sum", "window_sum_join")
 # The blocks of each device kernel the last launch ran (those it ran only).
 last_grid: dict = {}
 
 
+def plain_curve(pts):
+    """G1_LM_PLAIN or G2_LM_PLAIN, by the limb axis of the coords."""
+    L = pts[0].shape[0]
+    if L not in PLAIN_CURVE:
+        raise ValueError(f"limb axis {L} is neither 24 (G1) nor 48 (G2)")
+    return PLAIN_CURVE[L]
+
+
 def seg_scan_plain(pts, seg):
-    return _scan.seg_scan(G1_LM_PLAIN, pts, seg)
+    return _scan.seg_scan(plain_curve(pts), pts, seg)
 
 
 def suffix_scan_plain(pts):
-    return _scan.suffix_scan(G1_LM_PLAIN, pts)
+    return _scan.suffix_scan(plain_curve(pts), pts)
 
 
 def window_sum_plain(buckets):
-    """sum_b b S_b of each row of (24, g, B - 1) bucket coords -> (24, g):
+    """sum_b b S_b of each row of (L, g, B - 1) bucket coords -> (L, g):
     the suffix scan over the buckets, then a tree sum."""
-    return G1_LM_PLAIN.reduce_sum_lanes(suffix_scan_plain(buckets), axis=1)
+    return plain_curve(buckets).reduce_sum_lanes(suffix_scan_plain(buckets),
+                                                 axis=1)
 
 
-def seg_scan_chunked(pts, seg, sizes, curve=G1_LM_PLAIN):
+def seg_scan_chunked(pts, seg, sizes, curve=None):
     """The kernel's decomposition in tensor code, for the tests.  sizes =
     (chunk,) scans each chunk of `chunk` lanes with the plain scan;
     (chunk, run, ...) scans each chunk by the same decomposition with
     sizes[1:], as the kernel's block scans its threads' runs."""
+    curve = curve or plain_curve(pts)
     chunk, rest = sizes[0], tuple(sizes[1:])
     L, g, n = pts[0].shape
     nch = -(-n // chunk)
@@ -111,8 +125,8 @@ def runs_for(g: int, n: int, sms: int) -> int:
 def _launch(pts, seg, runs=None):
     dev = pts[0].device
     L, g, n = pts[0].shape
-    if L != 24 or seg.shape != (g, n) or any(c.shape != (L, g, n)
-                                             for c in pts):
+    if L not in (24, 48) or seg.shape != (g, n) or any(
+            c.shape != (L, g, n) for c in pts):
         raise ValueError(f"bucket scan: shapes {[tuple(c.shape) for c in pts]}"
                          f", keys {tuple(seg.shape)}")
     if any(c.device != dev for c in pts) or seg.device != dev:
@@ -126,25 +140,27 @@ def _launch(pts, seg, runs=None):
         runs = runs_for(g, n, torch.cuda.get_device_properties(
             dev).multi_processor_count)
     m = g * -(-n // (THREADS * runs))
-    agg = torch.empty((36, m), dtype=I32, device=dev)   # chunk totals
+    words = 3 * L // 2                                  # a point's words
+    agg = torch.empty((words, m), dtype=I32, device=dev)    # chunk totals
     agg_key = torch.empty(m, dtype=I32, device=dev)     # their last keys
-    global _fn
-    if _fn is None:
-        _fn = _build.fn("tpukzg_seg_scan", "pppppppppllipp")
+    fn, name = (("tpukzg_seg_scan", "bucket_scan") if L == 24 else
+                ("tpukzg_seg_scan_g2", "bucket_scan_g2"))
     blocks = (ctypes.c_int * 3)()
-    err = _fn(*[o.data_ptr() for o in out], *[c.data_ptr() for c in ins],
-              keys.data_ptr(), agg.data_ptr(), agg_key.data_ptr(), g, n,
-              runs, ctypes.addressof(blocks), _build.stream_ptr(dev))
-    _build.check(err, "tpukzg_seg_scan")
-    _build.launches["bucket_scan"] += 1
+    err = _build.fn(fn, "pppppppppllipp")(
+        *[o.data_ptr() for o in out], *[c.data_ptr() for c in ins],
+        keys.data_ptr(), agg.data_ptr(), agg_key.data_ptr(), g, n, runs,
+        ctypes.addressof(blocks), _build.stream_ptr(dev))
+    _build.check(err, fn)
+    _build.launches[name] += 1
     last_grid.clear()
     last_grid.update((k, b) for k, b in zip(KERNELS, blocks) if b)
     return tuple(out)
 
 
 def seg_scan(pts, seg):
-    """pts (X, Y, Z) of (24, g, n) Montgomery limbs; seg (g, n) sorted
-    keys.  CPU -> plain loop scan; CUDA -> kernel."""
+    """pts (X, Y, Z) of (24, g, n) (G1) or (48, g, n) (G2) Montgomery
+    limbs; seg (g, n) sorted keys.  CPU -> plain loop scan; CUDA ->
+    kernel."""
     dev = pts[0].device
     if dev.type == "cpu":
         return seg_scan_plain(pts, seg)
@@ -157,7 +173,7 @@ def _ceil_log2(n: int) -> int:
     return max(0, (n - 1).bit_length())
 
 
-def _window_join(P, Q, levels: int, lg: int):
+def _window_join(P, Q, levels: int, lg: int, curve):
     """The kernels' block_join on items (L, m, >= 2^levels): item t, the
     range of 2^lg buckets from t 2^lg, holds (P[..., t], Q[..., t]) =
     (its total, its sum weighted 1..2^lg) -> the pair of items 0..2^levels
@@ -166,8 +182,8 @@ def _window_join(P, Q, levels: int, lg: int):
     dev = P[0].device
 
     def join(X, idx, h):
-        new = G1_LM_PLAIN.add(tuple(c[..., idx] for c in X),
-                              tuple(c[..., idx + h] for c in X))
+        new = curve.add(tuple(c[..., idx] for c in X),
+                        tuple(c[..., idx + h] for c in X))
         for c, v in zip(X, new):
             c[..., idx] = v
 
@@ -177,12 +193,12 @@ def _window_join(P, Q, levels: int, lg: int):
         join(Q, t0, 1 << j)
         join(P, (t0[:, None] + offs).reshape(-1), 1 << j)
     terms = [tuple(c[..., 0] for c in Q)] + [
-        G1_LM_PLAIN.double_n(tuple(c[..., 1 << k] for c in P), lg + k)
+        curve.double_n(tuple(c[..., 1 << k] for c in P), lg + k)
         for k in range(levels)]
     h = 1
     while h <= levels:
         for i in range(0, levels + 1 - h, 2 * h):
-            terms[i] = G1_LM_PLAIN.add(terms[i], terms[i + h])
+            terms[i] = curve.add(terms[i], terms[i + h])
         h *= 2
     return tuple(c[..., 0] for c in P), terms[0]
 
@@ -200,7 +216,7 @@ def window_sum_chunked(buckets, s: int, threads: int = THREADS):
     if s != 1 << lg or threads != 1 << tl or nblk > threads:
         raise ValueError(f"window sum: s {s}, threads {threads}, "
                          f"{nblk} blocks a row")
-    dev, curve = buckets[0].device, G1_LM_PLAIN
+    dev, curve = buckets[0].device, plain_curve(buckets)
     pad = segs * s - nb
     S = tuple(torch.cat([c, i], 2).reshape(L, g, segs, s) for c, i in
               zip(buckets, curve.inf((g, pad), dev)))
@@ -217,12 +233,12 @@ def window_sum_chunked(buckets, s: int, threads: int = THREADS):
     inf = curve.inf((g, nblk * threads - segs), dev)
     items = [tuple(torch.cat([c, i], 2).reshape(L, g * nblk, threads)
                    for c, i in zip(X, inf)) for X in (R, A)]
-    T, A = _window_join(*items, _ceil_log2(min(segs, threads)), lg)
+    T, A = _window_join(*items, _ceil_log2(min(segs, threads)), lg, curve)
     # the join: one block a row over its nblk block pairs
     inf = curve.inf((g, threads - nblk), dev)
     items = [tuple(torch.cat([c.reshape(L, g, nblk), i], 2) for c, i in
                    zip(X, inf)) for X in (T, A)]
-    return _window_join(*items, _ceil_log2(nblk), lg + tl)[1]
+    return _window_join(*items, _ceil_log2(nblk), lg + tl, curve)[1]
 
 
 def window_segment_for(g: int, nb: int, sms: int) -> int:
@@ -239,13 +255,13 @@ def window_segment_for(g: int, nb: int, sms: int) -> int:
 def _launch_window(buckets, s=None):
     dev = buckets[0].device
     L, g, nb = buckets[0].shape
-    if L != 24 or any(c.shape != (L, g, nb) for c in buckets):
+    if L not in (24, 48) or any(c.shape != (L, g, nb) for c in buckets):
         raise ValueError("window sum: shapes "
                          f"{[tuple(c.shape) for c in buckets]}")
     if any(c.device != dev for c in buckets):
         raise ValueError("window sum: tensors on several devices")
     if g == 0 or nb == 0:
-        return G1_LM_PLAIN.inf((g,), dev)
+        return plain_curve(buckets).inf((g,), dev)
     if s is None:
         s = window_segment_for(g, nb, torch.cuda.get_device_properties(
             dev).multi_processor_count)
@@ -255,24 +271,25 @@ def _launch_window(buckets, s=None):
         raise ValueError(f"window sum: s {s} for {nb} buckets")
     ins = [c.to(I32).contiguous() for c in buckets]
     out = [torch.empty((L, g), dtype=I32, device=dev) for _ in range(3)]
-    agg = torch.empty((72, g * nblk), dtype=I32, device=dev)  # block pairs
-    global _ws_fn
-    if _ws_fn is None:
-        _ws_fn = _build.fn("tpukzg_window_sum", "pppppppllipp")
+    agg = torch.empty((3 * L, g * nblk), dtype=I32, device=dev)  # block pairs
+    fn, name = (("tpukzg_window_sum", "window_sum") if L == 24 else
+                ("tpukzg_window_sum_g2", "window_sum_g2"))
     blocks = (ctypes.c_int * 2)()
-    err = _ws_fn(*[o.data_ptr() for o in out], *[c.data_ptr() for c in ins],
-                 agg.data_ptr(), g, nb, lg, ctypes.addressof(blocks),
-                 _build.stream_ptr(dev))
-    _build.check(err, "tpukzg_window_sum")
-    _build.launches["window_sum"] += 1
+    err = _build.fn(fn, "pppppppllipp")(
+        *[o.data_ptr() for o in out], *[c.data_ptr() for c in ins],
+        agg.data_ptr(), g, nb, lg, ctypes.addressof(blocks),
+        _build.stream_ptr(dev))
+    _build.check(err, fn)
+    _build.launches[name] += 1
     last_grid.clear()
     last_grid.update(zip(WS_KERNELS, blocks))
     return tuple(out)
 
 
 def window_sum(buckets):
-    """sum_b b S_b of each row of (24, g, B - 1) bucket coords (lane i
-    holds S_{i+1}) -> (24, g).  CPU -> plain version; CUDA -> kernel."""
+    """sum_b b S_b of each row of (L, g, B - 1) bucket coords (lane i
+    holds S_{i+1}; L = 24 on G1, 48 on G2) -> (L, g).  CPU -> plain
+    version; CUDA -> kernel."""
     dev = buckets[0].device
     if dev.type == "cpu":
         return window_sum_plain(buckets)

@@ -20,13 +20,20 @@ The plain versions are the same formulas on tensors: 12 (8) field
 products issued as two batched products of 6 (4), and the add_mod /
 sub_mod / mul_small_mod steps of ``pallas/ec.py:22-68``.  Field results
 are canonical, so kernels and plain versions agree bit for bit.
+
+G2 (y^2 = x^3 + 4 (1 + u) over Fp2, coordinates (48, *batch): c0's 24
+limbs, then c1's) has its own instances of both kernels, one thread a
+point with the point and every Fp2 temporary in shared memory
+(``csrc/ec.cuh`` ``ec_add_g2``, ``ec_double_g2``), counted as
+``ec_add_g2`` and ``ec_double_g2``.  The wrappers pick the instance by
+the limb axis: 24 is G1, 48 is G2; the plain versions take FP2_LM.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpukzg_torch.field.limb_major import FP_LM_PLAIN
+from tpukzg_torch.field.limb_major import FP_LM_PLAIN, FP2_LM_PLAIN
 from tpukzg_torch.field.mont import I32
 from tpukzg_torch.kernels import _build
 
@@ -52,10 +59,10 @@ def ec_add_plain(p, q, F):
     t4 = F.sub(t4, F.add(t1, t2))
     t5 = F.sub(t5, F.add(t0, t2))
     t0 = F.mul_small(t0, 3)
-    t2 = F.mul_small(t2, 12)
+    t2 = F.mul_b3(t2)
     z3 = F.add(t1, t2)
     t1 = F.sub(t1, t2)
-    y3 = F.mul_small(t5, 12)
+    y3 = F.mul_b3(t5)
     m0, m1, m2, m3, m4, m5 = _bmul(F, [
         (t4, y3), (t3, t1), (y3, t0), (t1, z3), (t0, t3), (z3, t4),
     ])
@@ -63,13 +70,13 @@ def ec_add_plain(p, q, F):
 
 
 def ec_double_plain(p, F, times: int = 1):
-    """RCB15 Alg. 9 (a = 0, b3 = 12) applied `times` times, limb-major
-    coords (L, *batch) over field ops F."""
+    """RCB15 Alg. 9 (a = 0) applied `times` times, limb-major coords
+    (L, *batch) over field ops F."""
     for _ in range(times):
         X, Y, Z = p
         t0, t1, t2, t3 = _bmul(F, [(Y, Y), (Y, Z), (Z, Z), (X, Y)])
         z8 = F.mul_small(t0, 8)
-        t2 = F.mul_small(t2, 12)
+        t2 = F.mul_b3(t2)
         t6 = F.sub(t0, F.mul_small(t2, 3))
         y3t = F.add(t0, t2)
         m0, m1, m2, m3 = _bmul(F, [(t2, z8), (t1, z8), (t6, y3t),
@@ -88,19 +95,22 @@ def _device_of(name, coords):
     return dev
 
 
+# The plain field of each curve by its coordinates' limb count.
+PLAIN_FIELD = {24: FP_LM_PLAIN, 48: FP2_LM_PLAIN}
+
+
 def _limb_major(name, coords):
-    """Contiguous int32 (24, *batch) copies, their shape and lane count;
-    raises on another limb axis."""
+    """Contiguous int32 (24 or 48, *batch) copies, their shape and lane
+    count; raises on another limb axis."""
     shape = coords[0].shape
-    if shape[0] != 24:
-        raise ValueError(f"{name}: limb axis of {tuple(shape)} is not 24")
+    if shape[0] not in PLAIN_FIELD:
+        raise ValueError(f"{name}: limb axis of {tuple(shape)} is neither "
+                         "24 (G1) nor 48 (G2)")
     return ([c if c.dtype == I32 and c.is_contiguous()
              else c.to(I32).contiguous() for c in coords], shape,
-            coords[0].numel() // 24)
+            coords[0].numel() // shape[0])
 
 
-_fn = None
-_fn_double = None
 
 # Lane counts up to which B6 runs four threads a point: there a run is
 # bound by its chain of dependent products, which the quad kernel cuts
@@ -116,33 +126,34 @@ def double_group(n: int) -> int:
 
 
 def ec_add(p, q):
-    """p + q on limb-major (X, Y, Z) coords of (24, *batch); the batch
-    axes broadcast.  CPU tensors -> plain version; CUDA tensors -> the
-    elementwise kernel."""
+    """p + q on limb-major (X, Y, Z) coords of (24, *batch) (G1) or (48,
+    *batch) (G2); the batch axes broadcast.  CPU tensors -> plain
+    version; CUDA tensors -> the elementwise kernel of the curve."""
     dev = _device_of("ec_add", list(p) + list(q))
     coords = torch.broadcast_tensors(*p, *q)
     if dev.type == "cpu":
-        return ec_add_plain(tuple(coords[:3]), tuple(coords[3:]), FP_LM_PLAIN)
+        return ec_add_plain(tuple(coords[:3]), tuple(coords[3:]),
+                            PLAIN_FIELD.get(coords[0].shape[0], FP_LM_PLAIN))
     coords, shape, n = _limb_major("ec_add", coords)
     out = [torch.empty(shape, dtype=I32, device=dev) for _ in range(3)]
     if n == 0:
         return tuple(out)
     es, ls = 1, n                                  # element i, limb j: i + j n
-    global _fn
-    if _fn is None:
-        _fn = _build.fn("tpukzg_ec_add", "ppppppppplllp")
-    err = _fn(*[o.data_ptr() for o in out], *[c.data_ptr() for c in coords],
-              n, es, ls, _build.stream_ptr(dev))
-    _build.check(err, "tpukzg_ec_add")
-    _build.launches["ec_add"] += 1
+    name = "ec_add" if shape[0] == 24 else "ec_add_g2"
+    err = _build.fn("tpukzg_" + name, "ppppppppplllp")(
+        *[o.data_ptr() for o in out], *[c.data_ptr() for c in coords],
+        n, es, ls, _build.stream_ptr(dev))
+    _build.check(err, "tpukzg_" + name)
+    _build.launches[name] += 1
     return tuple(out)
 
 
 def ec_double(p, times: int = 1, group: int | None = None):
-    """[2^times] P on limb-major (X, Y, Z) coords of (24, *batch); the
-    batch axes broadcast.  CPU tensors -> plain version; CUDA tensors ->
-    one launch for the whole run of doublings, by `group` threads a point
-    (1 or 4; None: what ``double_group`` picks for the lane count)."""
+    """[2^times] P on limb-major (X, Y, Z) coords of (24, *batch) (G1) or
+    (48, *batch) (G2); the batch axes broadcast.  CPU tensors -> plain
+    version; CUDA tensors -> one launch for the whole run of doublings,
+    by `group` threads a point (G1: 1 or 4, None: what ``double_group``
+    picks for the lane count; G2: 1 alone)."""
     if times < 0:
         raise ValueError(f"ec_double: times={times} < 0")
     if group not in (None, 1, 4):
@@ -151,20 +162,26 @@ def ec_double(p, times: int = 1, group: int | None = None):
     coords = p if p[0].shape == p[1].shape == p[2].shape else \
         torch.broadcast_tensors(*p)
     if dev.type == "cpu":
-        return ec_double_plain(tuple(coords), FP_LM_PLAIN, times)
+        return ec_double_plain(tuple(coords), PLAIN_FIELD.get(
+            coords[0].shape[0], FP_LM_PLAIN), times)
     coords, shape, n = _limb_major("ec_double", coords)
+    if shape[0] == 48 and group not in (None, 1):
+        raise ValueError(f"ec_double: G2 runs one thread a point, not {group}")
     if times == 0:
         return tuple(coords)
     out = [torch.empty(shape, dtype=I32, device=dev) for _ in range(3)]
     if n == 0:
         return tuple(out)
-    group = double_group(n) if group is None else group
-    global _fn_double
-    if _fn_double is None:
-        _fn_double = _build.fn("tpukzg_ec_double", "ppppppllliip")
-    err = _fn_double(*[o.data_ptr() for o in out],
-                     *[c.data_ptr() for c in coords], n, 1, n, times, group,
-                     _build.stream_ptr(dev))
-    _build.check(err, "tpukzg_ec_double")
-    _build.launches["ec_double"] += 1
+    ptrs = [o.data_ptr() for o in out] + [c.data_ptr() for c in coords]
+    if shape[0] == 24:
+        name = "ec_double"
+        group = double_group(n) if group is None else group
+        err = _build.fn("tpukzg_ec_double", "ppppppllliip")(
+            *ptrs, n, 1, n, times, group, _build.stream_ptr(dev))
+    else:
+        name = "ec_double_g2"
+        err = _build.fn("tpukzg_ec_double_g2", "pppppplllip")(
+            *ptrs, n, 1, n, times, _build.stream_ptr(dev))
+    _build.check(err, "tpukzg_" + name)
+    _build.launches[name] += 1
     return tuple(out)

@@ -59,12 +59,13 @@ class Pippenger:
         self.window_chunk = window_chunk      # None -> from the budget
         self.chunk_budget_bytes = chunk_budget_bytes
 
-    def _chunk(self, n: int, W: int) -> int:
+    def _chunk(self, n: int, W: int, limbs: int) -> int:
         """Windows a chunk takes: `window_chunk`, else as many as the
-        byte budget holds, at least one."""
+        byte budget holds (three copies of the points, `limbs` int32
+        limbs a coordinate), at least one."""
         if self.window_chunk is not None:
             return min(self.window_chunk, W)
-        per_window = n * 3 * 24 * 4 * 3
+        per_window = n * 3 * limbs * 4 * 3
         return max(1, min(W, self.chunk_budget_bytes // max(per_window, 1)))
 
     def msm(self, points, scalars, c: int | None = None):
@@ -91,7 +92,7 @@ class Pippenger:
             return curve.inf((), dev)
         digits = _digits(scalars, c)                     # (W, n)
         W, n = digits.shape
-        g = self._chunk(n, W)
+        g = self._chunk(n, W, points[0][0].numel())
         wres = []
         for w0 in range(0, W, g):
             sorted_dg, perm = torch.sort(digits[w0:w0 + g], dim=1,

@@ -12,6 +12,12 @@ list into chunks of `POINT_CHUNK` points, runs them as the groups of one
 grouped MSM and adds the partial results.  `msm_batch` runs k MSMs over
 one shared point list as W k rows of sorted digits and one Horner fold
 over k lanes.
+
+Every MSM here takes the curve: G1_LM (points (n, 24)) by default, or
+G2_LM (points (n, 48): c0's 24 limbs, then c1's).  The kernels pick
+their G1 or G2 instance by the coordinates' limb axis, so a G2 MSM runs
+the same route as a G1 one: the sort, B3, the window sum, the Horner
+fold.
 """
 
 from __future__ import annotations
@@ -61,13 +67,15 @@ def _bucket_totals(curve, scanned, sorted_dg, c: int):
                                                 hit.device))
 
 
-def _chunk(n: int, rows: int, budget: int = 1 << 28) -> int:
+def _chunk(n: int, rows: int, limbs: int = 24,
+           budget: int = 1 << 28) -> int:
     """Rows of n sorted digits a bucket-scan chunk takes: MsmConfig's
-    window_chunk, else as many as `budget` bytes hold."""
+    window_chunk, else as many as `budget` bytes hold (three copies of a
+    row's points, `limbs` int32 limbs a coordinate: 24 G1, 48 G2)."""
     fixed = MsmConfig.from_env().window_chunk
     if fixed is not None:
         return min(fixed, rows)
-    per_row = n * 3 * 24 * 4 * 3
+    per_row = n * 3 * limbs * 4 * 3
     return max(1, min(rows, budget // max(per_row, 1)))
 
 
@@ -76,7 +84,7 @@ def _window_rows(pts_flat, rows, offs, c: int, curve: CurveLM):
     and scans the points pts_flat[:, offs[r] + perm] (offs None: 0) by
     bucket, in chunks of rows -> coords (L, R)."""
     R, n = rows.shape
-    gch = _chunk(n, R)
+    gch = _chunk(n, R, curve.F.L)
     wres = []
     for r0 in range(0, R, gch):
         sorted_dg, perm = torch.sort(rows[r0:r0 + gch], dim=1, stable=True)
@@ -103,10 +111,10 @@ def _horner(wres, c: int, curve: CurveLM):
 def msm_grouped(points, scalars, groups, c: int, curve: CurveLM = G1_LM):
     """G independent MSMs over consecutive slices of the point axis.
 
-    points: (X, Y, Z) of (n_total, 24); scalars (n_total, 16) canonical;
+    points: (X, Y, Z) of (n_total, L); scalars (n_total, 16) canonical;
     groups: slice lengths summing to n_total.  Returns G points, each an
-    (X, Y, Z) tuple of (24,) tensors.  Pads are zero scalars -> digit 0,
-    which no bucket picks."""
+    (X, Y, Z) tuple of (L,) tensors (L: the curve's limbs).  Pads are
+    zero scalars -> digit 0, which no bucket picks."""
     G = len(groups)
     nmax = max(groups)
     dev = scalars.device
@@ -132,8 +140,8 @@ def msm_grouped(points, scalars, groups, c: int, curve: CurveLM = G1_LM):
 def msm_batch(points, scalars, c: int | None = None,
               curve: CurveLM = G1_LM):
     """k MSMs over one shared point list (``pippenger_lm.py:279-329``):
-    points (X, Y, Z) of (n, 24); scalars (k, n, 16) canonical -> (X, Y,
-    Z) of (k, 24).  The W k rows of n digits (window-major) go through
+    points (X, Y, Z) of (n, L); scalars (k, n, 16) canonical -> (X, Y,
+    Z) of (k, L).  The W k rows of n digits (window-major) go through
     one chunked sort and bucket scan, and one Horner fold runs over the
     k lanes.  c defaults to MsmConfig's window, else the window of n."""
     k, n = scalars.shape[:2]
@@ -177,7 +185,7 @@ def msm_fixed(table, scalars, c: int, curve: CurveLM = G1_LM):
     keys = _digits(scalars, c).movedim(1, 0).reshape(k, W * n)  # (k, W n)
     flat = tuple(t.reshape(t.shape[0], W * n) for t in table)
     res = []
-    g = _chunk(W * n, k)
+    g = _chunk(W * n, k, curve.F.L)
     for r0 in range(0, k, g):
         sorted_dg, perm = torch.sort(keys[r0:r0 + g], dim=1, stable=True)
         pts = tuple(c_[:, perm] for c_ in flat)               # (24, g, W n)
@@ -195,9 +203,9 @@ POINT_CHUNK = 1 << 17
 
 def msm(points, scalars, c: int | None = None,
         point_chunk: int = POINT_CHUNK, curve: CurveLM = G1_LM):
-    """sum_i [k_i] P_i: points (X, Y, Z) of (n, 24); scalars (n, 16)
-    canonical -> (X, Y, Z) of (24,).  c defaults to MsmConfig's window,
-    else the window of n.  The
+    """sum_i [k_i] P_i: points (X, Y, Z) of (n, L) (L = curve.F.L: 24
+    on G1, 48 on G2); scalars (n, 16) canonical -> (X, Y, Z) of (L,).
+    c defaults to MsmConfig's window, else the window of n.  The
     list is padded with zero scalars (digit 0: no bucket picks a pad) to
     whole chunks of `point_chunk` points; the chunks are the groups of
     one grouped MSM (rows of at most `point_chunk` lanes, one Horner fold

@@ -11,7 +11,9 @@ shadow of utils/checked.py) and its chain launch, ec_add, ec_double (both
 kernels), the NTT and the fraction-tree numerator exact; the scans affine-equal (the kernel adds in chunks and runs, in
 another order than the plain `loop` scan); the windowed ladder, the
 batch MSM and the sharded MSM affine-equal; the distributed NTT
-exact."""
+exact.  The G2 instances (ec_add, ec_double, the bucket scan, the window
+sum; 48-limb coordinates) are held the same way, and the public G2 MSM
+against the exact answer from its points' discrete logs."""
 
 import numpy as np
 import pytest
@@ -23,9 +25,9 @@ from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
 from tpukzg_torch.kernels import bucket, ec, fractree, montmul, ntt
 from tpukzg_torch.utils import checked
 
-from torch_cases import (SRS16, ec_inputs, long_row_scan_inputs,
-                         ntt_inputs, operands, scan_inputs, srs_points,
-                         window_inputs)
+from torch_cases import (SRS16, ec_inputs, g2_limbs, g2_points,
+                         inf_limbs, long_row_scan_inputs, ntt_inputs,
+                         operands, scan_inputs, srs_points, window_inputs)
 
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
@@ -850,3 +852,241 @@ def test_dist_world_one_nccl_on_card(cuda, tmp_path):
     assert torch.equal(torch.tensor(fwd, dtype=torch.int32),
                        get_plan(n).ntt(vec.to(cuda)).cpu())
     assert torch.equal(torch.tensor(back, dtype=torch.int32), vec)
+
+
+# ---------------------------------------------------------------------------
+# G2: the Fp2 instances of B2, B6, B3 and the window sum, and the public
+# G2 MSM
+# ---------------------------------------------------------------------------
+
+
+def _g2_lanes(cuda, n, seed):
+    """(48, n) G2 coords on the card drawn from the pool of 32, the first
+    five lanes of (p, q) inf + Q, P + inf, inf + inf, P + P, P + (-P)."""
+    from tpukzg_torch.field.limb_major import FP2_LM_PLAIN
+    pool = tuple(torch.from_numpy(c).to(cuda) for c in g2_points())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    i1, i2 = (torch.randint(0, 32, (n,), generator=gen, device=cuda)
+              for _ in range(2))
+    p = [c[:, i1].clone() for c in pool]
+    q = [c[:, i2].clone() for c in pool]
+    inf = [torch.from_numpy(v).to(cuda) for v in inf_limbs(48)]
+    for c in range(3):
+        p[c][:, 0] = inf[c]
+        q[c][:, 1] = inf[c]
+        p[c][:, 2] = q[c][:, 2] = inf[c]
+        q[c][:, 3], q[c][:, 4] = p[c][:, 3], p[c][:, 4]
+    q[1][:, 4] = FP2_LM_PLAIN.neg(p[1][:, 4:5])[:, 0]
+    return tuple(p), tuple(q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 1000])
+def test_ec_add_g2_kernel_on_card(cuda, n):
+    """B2's G2 instance on 16 lanes (torch_cases.ec_inputs over the G2
+    pool) and on 1000 (16 blocks of 64, the last ragged): bit-exact
+    against the plain Fp2 formulas, one launch counted as ec_add_g2 and
+    none as ec_add."""
+    from tpukzg_torch.field.limb_major import FP2_LM_PLAIN
+    from tpukzg_torch.kernels import _build
+    if n == 16:
+        p, q = (tuple(torch.from_numpy(c).to(cuda) for c in x)
+                for x in ec_inputs(g2_points()))
+    else:
+        p, q = _g2_lanes(cuda, n, 5)
+    before = dict(_build.launches)
+    got = ec.ec_add(p, q)
+    assert _build.launches["ec_add_g2"] - before.get("ec_add_g2", 0) == 1
+    assert _build.launches["ec_add"] == before.get("ec_add", 0)
+    want = ec.ec_add_plain(p, q, FP2_LM_PLAIN)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("times", [1, 3, 11])
+def test_ec_double_g2_kernel_on_card(cuda, times):
+    """B6's G2 instance, a run of t doublings on 1000 lanes (infinity
+    among them): bit-exact against the plain formulas, one launch counted
+    as ec_double_g2; four threads a point is refused for G2."""
+    from tpukzg_torch.field.limb_major import FP2_LM_PLAIN
+    from tpukzg_torch.kernels import _build
+    p, _ = _g2_lanes(cuda, 1000, 6)
+    before = _build.launches["ec_double_g2"]
+    got = ec.ec_double(p, times)
+    assert _build.launches["ec_double_g2"] - before == 1
+    want = ec.ec_double_plain(p, FP2_LM_PLAIN, times)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError):
+        ec.ec_double(p, times, group=4)
+
+
+def _g2_scan_agrees(tp, ts, runs=None):
+    from tpukzg_torch.curve.weierstrass_lm import G2_LM_PLAIN
+    got = bucket._launch(tp, ts, runs)
+    assert got[0].shape == tp[0].shape
+    assert bool(G2_LM_PLAIN.eq(got, bucket.seg_scan_plain(tp, ts)).all())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runs", [1, 2, 4, 8])
+def test_bucket_kernel_g2_on_card(cuda, runs):
+    """B3's G2 instance: rows of C - 1, C + 1 and 3 C + 5 lanes (C = 128
+    runs), segmented and as one segment, affine-equal to the plain scan,
+    with the grid the launcher reports and one launch counted as
+    bucket_scan_g2; two launches give the same limbs."""
+    from tpukzg_torch.kernels import _build
+    C = bucket.THREADS * runs
+    for n in (C - 1, C + 1, 3 * C + 5):
+        pts, seg = scan_inputs(2, n, n, nkeys=max(2, n // 40),
+                               pool=g2_points())
+        tp = tuple(torch.from_numpy(c).to(cuda) for c in pts)
+        ts = torch.from_numpy(seg).to(cuda)
+        before = _build.launches["bucket_scan_g2"]
+        got = _g2_scan_agrees(tp, ts, runs)
+        assert _build.launches["bucket_scan_g2"] - before == 1
+        nch = -(-n // C)
+        assert bucket.last_grid == ({"scan_local": 2} if nch == 1 else {
+            "scan_local": 2 * nch, "scan_carry": 2,
+            "scan_fixup": 2 * (nch - 1)})
+        again = bucket._launch(tp, ts, runs)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _g2_scan_agrees(tp, torch.zeros((2, n), dtype=torch.int32,
+                                        device=cuda), runs)
+
+
+@pytest.mark.cuda
+def test_bucket_kernel_g2_long_rows_on_card(cuda):
+    """Two G2 rows of 6000 lanes under ~48 lanes a key: segments carried
+    across chunk edges, through the public wrapper."""
+    from tpukzg_torch.curve.weierstrass_lm import G2_LM_PLAIN
+    pts, seg = long_row_scan_inputs(2, 6000, 9, pool=g2_points())
+    tp = tuple(torch.from_numpy(c).to(cuda) for c in pts)
+    ts = torch.from_numpy(seg).to(cuda)
+    assert bool(G2_LM_PLAIN.eq(bucket.seg_scan(tp, ts),
+                               bucket.seg_scan_plain(tp, ts)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,nb", [(1, 32767), (64, 255), (3, 2047)],
+                         ids=["msm", "verify", "fixed"])
+def test_window_sum_kernel_g2_on_card(cuda, g, nb):
+    """The window sum's G2 instance at the G2 MSM's row of 32,767 buckets
+    (c = 15) and two more shapes, with the launcher's s: affine-equal to
+    the plain route, the limbs of its decomposition in tensor code, the
+    same limbs from two launches, one launch counted as window_sum_g2 a
+    call, and the grid reported."""
+    from tpukzg_torch.curve.weierstrass_lm import G2_LM_PLAIN
+    from tpukzg_torch.kernels import _build
+    b = tuple(torch.from_numpy(c).to(cuda)
+              for c in window_inputs(g, nb, g, pool=g2_points()))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    s = bucket.window_segment_for(g, nb, sms)
+    before = _build.launches["window_sum_g2"]
+    got = bucket.window_sum(b)
+    assert _build.launches["window_sum_g2"] - before == 1
+    assert bucket.last_grid == {
+        "window_sum": g * -(-nb // (s * bucket.THREADS)),
+        "window_sum_join": g}
+    assert got[0].shape == (48, g)
+    assert bool(G2_LM_PLAIN.eq(got, bucket.window_sum_plain(b)).all())
+    assert all(torch.equal(a, w) for a, w in zip(
+        got, bucket.window_sum_chunked(b, s)))
+    again = bucket.window_sum(b)
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 8, 256])
+def test_window_sum_g2_segments_on_card(cuda, s):
+    """Three G2 rows of 2,047 buckets with s forced: each the limbs of
+    the tensor-code decomposition at that s."""
+    b = tuple(torch.from_numpy(c).to(cuda)
+              for c in window_inputs(3, 2047, s, pool=g2_points()))
+    got = bucket._launch_window(b, s)
+    assert all(torch.equal(a, w) for a, w in zip(
+        got, bucket.window_sum_chunked(b, s)))
+
+
+def _g2_gen(device):
+    import golden.model as gold
+    return tuple(torch.from_numpy(c).to(device) for c in g2_limbs(
+        [gold.G2_GEN]))
+
+
+@pytest.mark.cuda
+def test_g2_windowed_ladder_on_card(cuda):
+    """G2_LM.scalar_mul on the card (the windowed ladder through
+    ec_add_g2 and ec_double_g2: 14 + 64 adds, 64 runs of 4 doublings)
+    over 256 lanes with 0, 1 and r - 1 among the scalars: affine-equal to
+    the plain 256-step ladder."""
+    from tpukzg_torch.curve.weierstrass_lm import G2_LM, G2_LM_PLAIN
+    from tpukzg_torch.kernels import _build
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    k = torch.randint(0, 1 << 16, (256, 16), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    k[..., 15] &= 0x3FFF
+    k[0] = 0
+    k[1] = torch.as_tensor(FR.from_int(1), device=cuda)
+    k[2] = torch.as_tensor(FR.from_int(FR.modulus - 1), device=cuda)
+    g = _g2_gen(cuda)
+    before = dict(_build.launches)
+    got = G2_LM.scalar_mul(g, k)
+    assert _build.launches["ec_double_g2"] - before.get("ec_double_g2",
+                                                         0) == 64
+    assert _build.launches["ec_add_g2"] - before.get("ec_add_g2", 0) == 78
+    want = G2_LM_PLAIN.scalar_mul_ladder(g, k)
+    assert bool(G2_LM_PLAIN.eq(got, want).all())
+    assert bool(G2_LM_PLAIN.is_inf(tuple(c[:, 0] for c in got)))
+
+
+@pytest.mark.cuda
+def test_msm_g2_on_card(cuda, monkeypatch):
+    """The public msm over 2^17 G2 points [s_i] G2 (made by the windowed
+    ladder on the card) with seeded scalars, at its default window: equal
+    in affine form to [sum k_i s_i mod r] G2 (one plain ladder), its
+    first two window sums affine-equal to the plain route on the very
+    buckets the MSM gave them, and its launches those of the G2
+    instances alone: a bucket scan and a window sum a window row, a run
+    of doublings and an add a Horner step."""
+    from tpukzg_torch.curve.weierstrass_lm import G2_LM, G2_LM_PLAIN
+    from tpukzg_torch.field.mont import R_MOD
+    from tpukzg_torch.kernels import _build
+    from tpukzg_torch.msm.pippenger_lm import default_window, msm
+    n = 1 << 17
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    s = torch.randint(0, 1 << 16, (n, 16), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    k = torch.randint(0, 1 << 16, (n, 16), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    s[..., 15] &= 0x3FFF
+    k[..., 15] &= 0x3FFF
+    g = _g2_gen(cuda)
+    pts = tuple(c.T.contiguous() for c in G2_LM.scalar_mul(g, s))
+    held = []
+    kernel_ws = bucket.window_sum
+
+    def window_sum(b):
+        out = kernel_ws(b)
+        if len(held) < 2:
+            held.append(bool(G2_LM_PLAIN.eq(
+                out, bucket.window_sum_plain(b)).all()))
+        return out
+
+    monkeypatch.setattr(bucket, "window_sum", window_sum)
+    before = dict(_build.launches)
+    got = msm(pts, k, curve=G2_LM)
+    diff = {name: c - before.get(name, 0)
+            for name, c in _build.launches.items()
+            if c != before.get(name, 0)}
+    c = default_window(n)
+    W = -(-256 // c)
+    assert held == [True, True]
+    assert diff == {"bucket_scan_g2": W, "window_sum_g2": W,
+                    "ec_double_g2": W - 1, "ec_add_g2": W}, diff
+    as_int = lambda t: [int.from_bytes(r.astype("<u2").tobytes(), "little")
+                        for r in t.cpu().numpy()]
+    dot = sum(a * b for a, b in zip(as_int(k), as_int(s))) % R_MOD
+    want = G2_LM_PLAIN.scalar_mul_ladder(
+        g, torch.as_tensor(FR.from_int(dot), device=cuda))
+    assert bool(G2_LM_PLAIN.eq(tuple(c[:, None] for c in got), want).all())

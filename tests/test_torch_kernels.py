@@ -18,7 +18,7 @@ from tpukzg_torch.field.limb_major import FP_LM_PLAIN
 from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN
 from tpukzg_torch.kernels import bucket, ec, montmul
 
-from torch_cases import (chunk_scan_inputs, ec_inputs, operands,
+from torch_cases import (chunk_scan_inputs, ec_inputs, g2_points, operands,
                          scan_inputs, srs_points, window_inputs)
 
 # Tiny tensors: one intra-op thread keeps parallel test workers from
@@ -233,26 +233,34 @@ def test_seg_scan_chunked_vs_loop_scan(chunk_case, sizes):
     assert bool(G1_LM_PLAIN.eq(got, ref_suf).all())
 
 
-@pytest.mark.parametrize("g,nb,s,threads", [
-    (2, 255, 1, 128), (2, 255, 4, 8), (1, 2047, 2, 128), (1, 2047, 32, 8),
-    (1, 37, 64, 128)], ids=["verify-s1", "ragged-s4", "fixed-s2",
-                            "fixed-s32-t8", "one-segment"])
-def test_window_sum_chunked_vs_plain(g, nb, s, threads):
+@pytest.mark.parametrize("g,nb,s,threads,curve", [
+    (2, 255, 1, 128, "g1"), (2, 255, 4, 8, "g1"), (1, 2047, 2, 128, "g1"),
+    (1, 2047, 32, 8, "g1"), (1, 37, 64, 128, "g1"), (2, 63, 4, 4, "g2"),
+    (1, 37, 64, 128, "g2")], ids=["verify-s1", "ragged-s4", "fixed-s2",
+                                  "fixed-s32-t8", "one-segment",
+                                  "g2-ragged-s4-t4", "g2-one-segment"])
+def test_window_sum_chunked_vs_plain(g, nb, s, threads, curve):
     """The window-sum kernels' decomposition in tensor code against the
     plain route (suffix scan, then the tree sum), affine-equal: rows of
     the batch verify's 255 buckets and the fixed-base MSM's 2047 at a
     row or two; s = 1, s not dividing B - 1, a segment longer than the
     row; blocks of 128 segments and of 8 (so the join meets several
     blocks); empty buckets, a row all infinity and the doubling case
-    (window_inputs).  The CPU wrapper takes the plain route."""
-    b = tuple(torch.from_numpy(c) for c in window_inputs(g, nb, nb + s))
+    (window_inputs).  G2 buckets (48 limbs, the pool of
+    torch_cases.g2_points) in two of the cases.  The CPU wrapper takes
+    the plain route."""
+    pool = g2_points() if curve == "g2" else None
+    b = tuple(torch.from_numpy(c)
+              for c in window_inputs(g, nb, nb + s, pool=pool))
     want = bucket.window_sum_plain(b)
     got = bucket.window_sum_chunked(b, s, threads)
-    assert got[0].shape == (24, g)
-    assert bool(G1_LM_PLAIN.eq(got, want).all())
+    L = 24 if curve == "g1" else 48
+    assert got[0].shape == (L, g)
+    assert bool(bucket.plain_curve(b).eq(got, want).all())
     assert all(torch.equal(a, w) for a, w in zip(bucket.window_sum(b), want))
     if g == 2:
-        assert bool(G1_LM_PLAIN.is_inf(tuple(c[:, 1:] for c in got)).all())
+        assert bool(bucket.plain_curve(b).is_inf(
+            tuple(c[:, 1:] for c in got)).all())
 
 
 def test_window_segment_for():

@@ -1,7 +1,9 @@
 """Inputs shared by the port's kernel tests on the CPU
 (test_torch_kernels.py) and on a card (test_torch_cuda.py).  Imports
-neither JAX nor the JAX package, so the card tests can run without them."""
+neither JAX nor the JAX package, so the card tests can run without them.
+G2 inputs come from the golden model (plain Python integers)."""
 
+import functools
 import os
 import random
 
@@ -21,6 +23,43 @@ def srs_points():
                      .astype(np.int32).copy() for i in range(3))
 
 
+def g2_limbs(points):
+    """Golden G2 points (Jacobian) -> limb-major (48, n) int32 Montgomery
+    coords of their affine form (c0's 24 limbs, then c1's; Z = 1, or
+    the point at infinity (0, 1, 0))."""
+    import golden.model as gold
+    cols = ([], [], [])
+    for p in points:
+        a = gold.g2_affine(p)
+        vals = (((0, 0), (1, 0), (0, 0)) if a is None else
+                ((a[0].c0, a[0].c1), (a[1].c0, a[1].c1), (1, 0)))
+        for c, (v0, v1) in zip(cols, vals):
+            c.append(np.concatenate([FP.to_mont_host(v0),
+                                     FP.to_mont_host(v1)]))
+    return tuple(np.stack(c, 1).astype(np.int32) for c in cols)
+
+
+@functools.lru_cache(maxsize=1)
+def _g2_pool():
+    import golden.model as gold
+    rng = random.Random(0x6202)
+    return g2_limbs([gold.g2_mul(gold.G2_GEN, rng.randrange(1, gold.R))
+                     for _ in range(32)])
+
+
+def g2_points():
+    """32 G2 points [s_i] G2 of seeded logs, limb-major (48, 32) int32
+    (the G2 counterpart of srs_points)."""
+    return tuple(c.copy() for c in _g2_pool())
+
+
+def inf_limbs(L):
+    """The point at infinity (0, 1, 0) in L limbs (24 G1, 48 G2)."""
+    one = np.zeros(L, np.int32)
+    one[:24] = FP.one_mont
+    return (np.zeros(L, np.int32), one, np.zeros(L, np.int32))
+
+
 def operands(F, seed, n):
     """(L, n) limb-major pairs; lanes 0-2 of `a` are R - 1 (all 0xFFFF,
     the carry-stress input), p - 1 and 0."""
@@ -34,13 +73,15 @@ def operands(F, seed, n):
     return a, b
 
 
-def ec_inputs():
-    """16 lanes of P + Q over SRS points, with P + P (lane 0),
-    P + (-P) (1), inf + Q (2), P + inf (3) and inf + inf (4)."""
-    pts = srs_points()
+def ec_inputs(pool=None):
+    """16 lanes of P + Q over SRS points (or the 32 points of `pool`, G1
+    or G2), with P + P (lane 0), P + (-P) (1), inf + Q (2), P + inf (3)
+    and inf + inf (4)."""
+    pts = srs_points() if pool is None else pool
+    L = pts[0].shape[0]
     p = [c[:, :16].copy() for c in pts]
     q = [c[:, 16:].copy() for c in pts]
-    inf = (np.zeros(24, np.int32), FP.one_mont, np.zeros(24, np.int32))
+    inf = inf_limbs(L)
     for c in range(3):
         q[c][:, 0] = p[c][:, 0]
         q[c][:, 1] = p[c][:, 1]
@@ -48,27 +89,30 @@ def ec_inputs():
         q[c][:, 3] = inf[c]
         p[c][:, 4] = inf[c]
         q[c][:, 4] = inf[c]
-    q[1][:, 1] = FP.neg(torch.from_numpy(p[1][:, 1])).numpy()
+    y = torch.from_numpy(p[1][:, 1].reshape(L // 24, 24))
+    q[1][:, 1] = FP.neg(y).numpy().reshape(L)
     return tuple(p), tuple(q)
 
 
-def scan_inputs(g, n, seed, nkeys=5):
-    """(24, g, n) coords drawn from the SRS points and (g, n) sorted keys."""
-    pts = srs_points()
+def scan_inputs(g, n, seed, nkeys=5, pool=None):
+    """(L, g, n) coords drawn from the SRS points (or `pool`) and (g, n)
+    sorted keys."""
+    pts = srs_points() if pool is None else pool
+    L = pts[0].shape[0]
     nprng = np.random.default_rng(seed)
     idx = nprng.integers(0, pts[0].shape[1], size=g * n)
-    coords = tuple(c[:, idx].reshape(24, g, n).copy() for c in pts)
+    coords = tuple(c[:, idx].reshape(L, g, n).copy() for c in pts)
     seg = np.sort(nprng.integers(0, nkeys, size=(g, n)), -1).astype(np.int32)
     return coords, seg
 
 
-def window_inputs(g, n, seed):
-    """(24, g, n) bucket coords for the window sum: SRS points (drawn with
-    repeats), about one bucket in five empty (infinity), the top two
-    buckets of row 0 equal and the one below them empty (so the walk's
-    R += S and A += R meet the doubling case), and, from two rows on,
-    the last row all infinity."""
-    pts = srs_points()
+def window_inputs(g, n, seed, pool=None):
+    """(L, g, n) bucket coords for the window sum: SRS points (or those
+    of `pool`; drawn with repeats), about one bucket in five empty
+    (infinity), the top two buckets of row 0 equal and the one below them
+    empty (so the walk's R += S and A += R meet the doubling case), and,
+    from two rows on, the last row all infinity."""
+    pts = srs_points() if pool is None else pool
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, pts[0].shape[1], size=(g, n))
     idx[0, n - 2:] = idx[0, n - 1]
@@ -78,7 +122,7 @@ def window_inputs(g, n, seed):
     empty[0, max(n - 3, 0)] = n >= 3
     if g >= 2:
         empty[-1] = True
-    inf = (np.zeros(24, np.int32), FP.one_mont, np.zeros(24, np.int32))
+    inf = inf_limbs(pts[0].shape[0])
     for c, v in zip(coords, inf):
         c[:, empty] = v[:, None]
     return tuple(coords)
@@ -108,12 +152,12 @@ def ntt_inputs(k, n, seed):
     return FR.to_mont_host(vals).reshape(k, n, 16)
 
 
-def long_row_scan_inputs(g, n, seed):
+def long_row_scan_inputs(g, n, seed, pool=None):
     """Rows shaped like the fixed-base MSM's (98,304 lanes under 2^11 - 1
     bucket keys: ~48 lanes a segment): n lanes, many 768-lane tiles, of
-    SRS points under sorted keys with ~48 lanes a key, so segments span
-    tile edges."""
-    return scan_inputs(g, n, seed, nkeys=max(1, n // 48))
+    SRS points (or `pool`'s) under sorted keys with ~48 lanes a key, so
+    segments span tile edges."""
+    return scan_inputs(g, n, seed, nkeys=max(1, n // 48), pool=pool)
 
 
 def golden_triples(n, count, seed):

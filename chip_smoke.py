@@ -84,9 +84,12 @@ Phases, each printed on its own line:
      loaded by from_compressed (equal, the fixtures verify) and three bad
      inputs refused; verify_kzg_proof True for an out-of-domain and an
      in-domain z, False for a wrong y and a wrong proof; the public MSM
-     over 2^20 points (8 chunks of 2^17) equal to [sum k_i d_i] G1, and
-     B3 on one row of a chunk and the window sum on its first buckets
-     against their plain versions; B6's launches on every path;
+     over 2^20 points (8 chunks of 2^17) equal to [sum k_i d_i] G1, its
+     chunks' buckets added by window (bucket_fold, 7 row-adds a window)
+     and its one window sum on (24, 16, 65535) buckets, B3 on one row of
+     a chunk and the window sum on its buckets (two rows held against
+     the plain route) against their plain versions, and the fold's add
+     on two of its rows; B6's launches on every path;
   9. the windowed ladder (what scalar_mul runs on the card) against the
      256-step ladder in affine form on G1 (24, 2) and (24, 8192) and on
      G2 (the setup generation and verify_kzg_proof above already ran it:
@@ -95,9 +98,10 @@ Phases, each printed on its own line:
      e([a] P, Q) == e(P, [a] Q); the generic Pippenger over 64 G2 points
      equal to golden; the public msm over 2^20 G2 points, the G2 cell's
      size (G2_LM, the G2 instances of B2, B3, B6 and the window sum)
-     equal to golden's [sum k_i d_i] G2, its launches counted, each G2
-     instance against its plain version on that MSM's shapes and timed
-     (ec_add_g2, ec_double_g2, bucket_scan_g2, window_sum_g2 in the
+     equal to golden's [sum k_i d_i] G2, its launches counted (one
+     window sum, on (48, 16, 65535) buckets; bucket_fold_g2 7 a window),
+     each G2 instance against its plain version on that MSM's shapes and
+     timed (ec_add_g2, ec_double_g2, bucket_scan_g2, window_sum_g2 in the
      kernels line); msm_batch with k = 16 rows over the n = 4096
      Lagrange points equal to 16 calls of msm, and B3 on its first chunk
      of rows and the window sum on its first buckets against their plain
@@ -550,14 +554,14 @@ def capture_ec_add(torch, fn, lanes: int, nth: int):
     from tpukzg_torch.kernels import ec
     orig, seen, cap = ec.ec_add, [0], {}
 
-    def rec(p, q):
+    def rec(p, q, **kw):
         if torch.broadcast_shapes(*(c.shape for c in p + q))[1:].numel() \
                 == lanes:
             seen[0] += 1
             if seen[0] == nth:
                 cap["pq"] = (tuple(c.clone() for c in p),
                              tuple(c.clone() for c in q))
-        return orig(p, q)
+        return orig(p, q, **kw)
 
     ec.ec_add = rec
     try:
@@ -830,11 +834,13 @@ def check_bucket(torch, pts, seg, reps: int):
                 device_kernels=len(grid), grid=grid)
 
 
-def check_window(torch, buckets, reps: int):
+def check_window(torch, buckets, reps: int, rows: int | None = None):
     """The window-sum kernel (G1, or G2 on 48-limb coords) against its
-    plain route (the suffix scan, then the tree sum) in affine form, and
-    twice to the same limbs; its time on the card and a call; bound: two
-    adds a bucket."""
+    plain route (the suffix scan, then the tree sum) in affine form on
+    the first `rows` rows (None: all; a plain route over 16 x 65,535
+    buckets would hold tens of GB), and twice to the same limbs; its
+    time on the card and a call over all rows; bound: two adds a
+    bucket."""
     from tpukzg_torch.kernels import bucket
     got = bucket._launch_window(buckets)
     grid = dict(bucket.last_grid)
@@ -842,12 +848,15 @@ def check_window(torch, buckets, reps: int):
     L, g, nb = buckets[0].shape
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"window sum: two launches on {g} x {nb} buckets differ")
-    want, pms = timed_once(torch, lambda: bucket.window_sum_plain(buckets))
+    rows = g if rows is None else min(rows, g)
+    want, pms = timed_once(torch, lambda: bucket.window_sum_plain(
+        tuple(c[:, :rows] for c in buckets)))
+    got = tuple(c[:, :rows] for c in got)
     err = max(int((a.long() - b.long()).abs().max().item())
               for a, b in zip(got, want))
     same = bucket.plain_curve(buckets).eq(got, want)
     check(bool(same.all().item()), "window sum: kernel != plain after "
-          f"normalisation in {int((~same).sum().item())} of {g} rows")
+          f"normalisation in {int((~same).sum().item())} of {rows} rows")
     bms, by = bound_ms(3 * L * 4 * g * nb, 2 * g * nb * (
         EC_ADD_OPS if L == 24 else EC_ADD_OPS_G2))
     return dict(max_abs_err=err,
@@ -855,13 +864,14 @@ def check_window(torch, buckets, reps: int):
                             reps),
                 call_ms=cuda_ms(torch, lambda: bucket._launch_window(buckets),
                                 reps),
-                plain_ms=pms, bound_ms=bms, bound_by=by, shape=[L, g, nb],
-                grid=grid)
+                plain_ms=pms, plain_rows=rows, bound_ms=bms, bound_by=by,
+                shape=[L, g, nb], grid=grid)
 
 
 def say_window(r, name):
     say(f"[window sum {r['shape']}, {name}] ok, affine-equal to the plain "
-        f"route, the same limbs twice: {r['ms']:.3f} ms on the card, "
+        f"route on {r['plain_rows']} rows, the same limbs twice: "
+        f"{r['ms']:.3f} ms on the card, "
         f"{r['call_ms']:.3f} ms a call (plain {r['plain_ms']:.1f} ms, bound "
         f"{r['bound_ms']:.4f} ms by {r['bound_by']}; blocks "
         f"{json.dumps(r['grid'])})")
@@ -1423,12 +1433,55 @@ def msm_inputs(torch, setup, log_n: int):
     return points, k
 
 
+def check_msm_route(torch, launches, window, n: int, L: int):
+    """The public msm's launches on n points (G1: L = 24, G2: 48) against
+    its route: W G window rows of a chunk of POINT_CHUNK points through
+    B3, in scan chunks of `_chunk` rows; one bucket_fold launch a row
+    added into a window (a scan chunk holds at most two rows of a
+    window here, so each launch adds one row: G - 1 a window); one
+    window sum on (L, W, 2^c - 1) buckets (`window`, the captured
+    input); W Horner adds, W - 1 runs of doublings -> the fold's
+    launches."""
+    from tpukzg_torch.msm.pippenger_lm import (POINT_CHUNK, _chunk,
+                                               default_window)
+    c = default_window(n)
+    W, G = -(-256 // c), -(-n // POINT_CHUNK)
+    rows = _chunk(min(n, POINT_CHUNK), W * G, L)
+    check(rows <= 2, f"{rows} window rows a scan chunk: a fold launch may "
+          "add more than one row")
+    g2 = "" if L == 24 else "_g2"
+    want = {"bucket_scan" + g2: -(-W * G // rows), "window_sum" + g2: 1,
+            "ec_add" + g2: W, "ec_double" + g2: W - 1}
+    if G > 1:
+        want["bucket_fold" + g2] = W * (G - 1)
+    got = {k: v for k, v in launches.items() if v}
+    check(got == want, f"the msm of {n} points launched {got}, not {want}")
+    shape = tuple(window[0].shape)
+    check(shape == (L, W, (1 << c) - 1),
+          f"the msm's one window sum ran on {shape} buckets, not "
+          f"{(L, W, (1 << c) - 1)}")
+    return want.get("bucket_fold" + g2, 0)
+
+
+def hold_fold(torch, acc, reps: int):
+    """The fold's add (B2, counted as bucket_fold) on the first two rows
+    of the msm's accumulated buckets: bit-exact against the plain add,
+    timed on the card."""
+    r = hold_ec_add(torch, tuple(c[:, 0] for c in acc),
+                    tuple(c[:, 1] for c in acc), reps)
+    r.pop("out")
+    r["check"] = ("bit-exact against the plain add on two window rows of "
+                  "the MSM's accumulated buckets")
+    return r
+
+
 def msm_path(torch, setup, paths, say_card, log_n: int = 20):
     """The public MSM over 2^log_n points: the SRS's 2n points (known
     logs tau^i and L_i(tau), tau = 0xDEADBEEF) tiled, seeded scalars below
-    2^254.  Check: the result equals [sum k_i d_i mod r] G1 (one ladder).
-    Returns the first B3 launch on a row of POINT_CHUNK lanes (its input,
-    one row), the first window sum's buckets and the launches' grids."""
+    2^254.  Check: the result equals [sum k_i d_i mod r] G1 (one ladder),
+    and its launches those of its route (`check_msm_route`).  Returns
+    the first B3 launch on a row of POINT_CHUNK lanes (its input, one
+    row), the window sum's buckets and the launches' grids."""
     from tpukzg_torch.curve import g1 as g1m
     from tpukzg_torch.curve.weierstrass_lm import G1_LM
     from tpukzg_torch.field.mont import FR, R_MOD
@@ -1476,6 +1529,9 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
     want = G1_LM.scalar_mul(g, torch.as_tensor(FR.from_int([s]), device=dev))
     ok = bool(G1_LM.eq(tuple(c[:, None] for c in out), want).all().item())
     check(ok, "the 2^20-point MSM differs from [sum k_i d_i] G1")
+    check("window" in cap, "no window sum was captured in the MSM")
+    folds = check_msm_route(torch, paths["msm_2^20"], cap["window"], N, 24)
+    fold = hold_fold(torch, cap["window"], REPS)
     shapes = collections.Counter(sh for sh, _ in grids)
     by_shape = {f"{sh[0]}x{sh[1]}": dict(launches=c, grid=next(
         gr for s_, gr in grids if s_ == sh)) for sh, c in shapes.items()}
@@ -1488,9 +1544,14 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
              f"kernel launches "
              f"{json.dumps(paths['msm_2^20'])}; B3 "
              f"launches by (rows, lanes) and a launch's grid "
-             f"{json.dumps(by_shape)}")
+             f"{json.dumps(by_shape)}; one window sum on "
+             f"{tuple(cap['window'][0].shape)} buckets")
+    say_card(f"[bucket_fold {fold['shape']}] ok, {fold['check']}: "
+             f"{fold['ms']:.4f} ms on the card, {fold['call_ms']:.4f} ms a "
+             f"call (plain {fold['plain_ms']:.1f} ms, bound "
+             f"{fold['bound_ms']:.4f} ms by {fold['bound_by']}); {folds} "
+             f"launches a 2^{log_n}-point MSM")
     check("row" in cap, "no B3 launch on a chunk's row was captured")
-    check("window" in cap, "no window sum was captured in the MSM")
     return cap["row"], cap["window"], by_shape
 
 
@@ -1692,9 +1753,8 @@ def g2_kernels_path(torch, paths, say_card, reps: int, log_n: int = 20):
                                        (w[1].c0, w[1].c1)),
           f"the G2 MSM of 2^{log_n} points differs from [sum k_i d_i] G2")
     launched = {n_: c for n_, c in paths["g2_msm"].items() if c}
-    check(set(launched) == {"bucket_scan_g2", "window_sum_g2", "ec_add_g2",
-                            "ec_double_g2"},
-          f"the G2 MSM launched {launched}, not the G2 instances alone")
+    check("window" in cap, "no window sum was captured in the G2 MSM")
+    folds = check_msm_route(torch, launched, cap["window"], N, 48)
     c = default_window(N)
     nb = cap["window"][0].shape[2]
     seg = bucket.window_segment_for(
@@ -1702,8 +1762,10 @@ def g2_kernels_path(torch, paths, say_card, reps: int, log_n: int = 20):
         torch.cuda.get_device_properties(dev).multi_processor_count)
     say_card(f"[G2 msm 2^{log_n}] equals golden's [sum k_i d_i] G2: True; "
              f"{wall:.3f} s (one call, c = {c}, B3 rows of "
-             f"{tuple(cap['row'][1].shape)}, window sums of {nb} buckets "
-             f"at s = {seg}); the points by the windowed G2 ladder "
+             f"{tuple(cap['row'][1].shape)}, {folds} fold adds of {nb} "
+             f"buckets, one window sum on "
+             f"{tuple(cap['window'][0].shape)} buckets at s = {seg}); the "
+             f"points by the windowed G2 ladder "
              f"{pts_ms:.1f} ms; kernel launches (counted from 0) "
              f"{json.dumps(launched)}")
     res = {}
@@ -1746,11 +1808,17 @@ def g2_kernels_path(torch, paths, say_card, reps: int, log_n: int = 20):
     r["check"] = ("affine-equal in every lane of the G2 MSM's first row, "
                   "the same limbs on two launches")
     res["bucket_scan_g2"] = r
-    r = check_window(torch, cap["window"], reps)
+    r = check_window(torch, cap["window"], reps, rows=1)
     r["segment"] = seg
-    r["check"] = (f"affine-equal to the plain route on the G2 MSM's first "
-                  f"buckets at s = {seg}, the same limbs on two launches")
+    r["check"] = (f"affine-equal to the plain route on the first row of the "
+                  f"G2 MSM's buckets at s = {seg}, the same limbs on two "
+                  f"launches")
     res["window_sum_g2"] = r
+    r = hold_fold(torch, cap["window"], reps)
+    say_card(f"[bucket_fold_g2 {r['shape']}] ok, {r['check']}: "
+             f"{r['ms']:.4f} ms on the card, {r['call_ms']:.4f} ms a call "
+             f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+             f"by {r['bound_by']}); {folds} launches a 2^{log_n}-point MSM")
     for name, r in res.items():
         say_card(f"[{name} {r['shape']}] ok, {r['check']}: {r['ms']:.4f} ms "
                  f"on the card, {r['call_ms']:.4f} ms a call (plain "
@@ -2333,7 +2401,7 @@ def main() -> int:
                                          "verify_kzg_proof_ladder": b2_one}
     (pts, seg), win, by_shape = msm_path(torch, ts.setup, paths, say_card)
     w = results["window_sum"]["other_shapes"]["msm_2^20"] = check_window(
-        torch, win, REPS)
+        torch, win, REPS, rows=2)
     say_window(w, "the 2^20-point MSM's")
     r = check_bucket(torch, pts, seg, REPS)
     r["check"] = ("affine-equal in every lane of one row of a 2^20-point "
@@ -2399,13 +2467,16 @@ def main() -> int:
              f"{json.dumps({p: c.get('ec_double', 0) for p, c in paths.items()})}")
     say_card("[B2 ec_add] launches by path "
              f"{json.dumps({p: c.get('ec_add', 0) for p, c in paths.items()})}")
+    say_card("[B2 as the bucket fold] launches by path " + json.dumps(
+        {p: c.get("bucket_fold", 0) + c.get("bucket_fold_g2", 0)
+         for p, c in paths.items()}))
     for path, need in (("setup_gen", ("ec_add", "ec_double", "montmul_fp")),
                        ("from_compressed", ("ec_add", "ec_double",
                                             "montmul_fp")),
                        ("verify_kzg_proof", ("ec_add", "ec_double",
                                              "montmul_fp")),
-                       ("msm_2^20", ("bucket_scan", "window_sum", "ec_add",
-                                     "ec_double")),
+                       ("msm_2^20", ("bucket_scan", "bucket_fold",
+                                     "window_sum", "ec_add", "ec_double")),
                        ("tables", ("ec_double",)),
                        ("msm_batch", ("bucket_scan", "window_sum", "ec_add",
                                       "ec_double")),

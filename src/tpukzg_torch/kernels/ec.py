@@ -125,10 +125,11 @@ def double_group(n: int) -> int:
     return 4 if n <= QUAD_MAX_LANES else 1
 
 
-def ec_add(p, q):
+def ec_add(p, q, counted_as: str = "ec_add"):
     """p + q on limb-major (X, Y, Z) coords of (24, *batch) (G1) or (48,
     *batch) (G2); the batch axes broadcast.  CPU tensors -> plain
-    version; CUDA tensors -> the elementwise kernel of the curve."""
+    version; CUDA tensors -> the elementwise kernel of the curve, its
+    launch counted as `counted_as` (G1) or `counted_as` + "_g2" (G2)."""
     dev = _device_of("ec_add", list(p) + list(q))
     coords = torch.broadcast_tensors(*p, *q)
     if dev.type == "cpu":
@@ -139,12 +140,13 @@ def ec_add(p, q):
     if n == 0:
         return tuple(out)
     es, ls = 1, n                                  # element i, limb j: i + j n
-    name = "ec_add" if shape[0] == 24 else "ec_add_g2"
-    err = _build.fn("tpukzg_" + name, "ppppppppplllp")(
+    g2 = "" if shape[0] == 24 else "_g2"
+    fn = "tpukzg_ec_add" + g2
+    err = _build.fn(fn, "ppppppppplllp")(
         *[o.data_ptr() for o in out], *[c.data_ptr() for c in coords],
         n, es, ls, _build.stream_ptr(dev))
-    _build.check(err, "tpukzg_" + name)
-    _build.launches[name] += 1
+    _build.check(err, fn)
+    _build.launches[counted_as + g2] += 1
     return tuple(out)
 
 

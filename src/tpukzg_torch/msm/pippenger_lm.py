@@ -8,8 +8,11 @@ the CPU).  The grouped MSM (batch verify)
 then folds its windows by Horner; the fixed-base MSM (commit, open) has
 them folded into a table of [2^(c w)] P_i, so one sorted row of W n keys
 per MSM needs no doublings at all.  The public `msm` cuts a long point
-list into chunks of `POINT_CHUNK` points, runs them as the groups of one
-grouped MSM and adds the partial results.  `msm_batch` runs k MSMs over
+list into chunks of `POINT_CHUNK` points, one row of digits a chunk and
+window; as each chunk of rows leaves the scan, its bucket totals add
+into one accumulator of the W windows' buckets (buckets are linear in
+the points), and one window sum over those W rows and one Horner fold
+over one lane follow.  `msm_batch` runs k MSMs over
 one shared point list as W k rows of sorted digits and one Horner fold
 over k lanes.
 
@@ -27,7 +30,7 @@ import torch
 
 from tpukzg_torch.curve.weierstrass_lm import G1_LM, CurveLM
 from tpukzg_torch.field.mont import upload
-from tpukzg_torch.kernels import bucket
+from tpukzg_torch.kernels import bucket, ec
 from tpukzg_torch.utils.config import MsmConfig
 
 
@@ -79,21 +82,59 @@ def _chunk(n: int, rows: int, limbs: int = 24,
     return max(1, min(rows, budget // max(per_row, 1)))
 
 
-def _window_rows(pts_flat, rows, offs, c: int, curve: CurveLM):
-    """The window sums of R rows of n digits: each row sorts its digits
+def _bucket_rows(pts_flat, rows, offs, c: int, curve: CurveLM):
+    """The bucket totals of R rows of n digits: each row sorts its digits
     and scans the points pts_flat[:, offs[r] + perm] (offs None: 0) by
-    bucket, in chunks of rows -> coords (L, R)."""
+    bucket, in chunks of rows -> yields (r0, coords (L, g, 2^c - 1)) for
+    rows r0 .. r0 + g - 1."""
     R, n = rows.shape
     gch = _chunk(n, R, curve.F.L)
-    wres = []
     for r0 in range(0, R, gch):
         sorted_dg, perm = torch.sort(rows[r0:r0 + gch], dim=1, stable=True)
         idx = perm if offs is None else perm + offs[r0:r0 + gch, None]
         pts = tuple(c_[:, idx] for c_ in pts_flat)           # (L, gch, n)
         scanned = bucket.seg_scan(pts, sorted_dg)
-        buckets = _bucket_totals(curve, scanned, sorted_dg, c)
-        wres.append(bucket.window_sum(buckets))              # (L, gch)
+        yield r0, _bucket_totals(curve, scanned, sorted_dg, c)
+
+
+def _window_rows(pts_flat, rows, offs, c: int, curve: CurveLM):
+    """The window sum of each of R rows of n digits (`_bucket_rows`'
+    rows) -> coords (L, R)."""
+    wres = [bucket.window_sum(b)
+            for _, b in _bucket_rows(pts_flat, rows, offs, c, curve)]
     return tuple(torch.cat([w[i] for w in wres], -1) for i in range(3))
+
+
+def _fold(acc, run, buckets, r0: int, G: int):
+    """Adds the bucket totals of rows r0 .. r0 + g - 1 (coords (L, g,
+    B - 1); row r is chunk r % G of window r // G) into their windows.
+    A window's rows here add up by a tree (one launch a level), then
+    into its running sum from earlier chunks of rows (`run`, by window);
+    its last row puts the sum into acc (coords (L, W, B - 1)).  Every add
+    is counted as bucket_fold: G - 1 adds a bucket of a window."""
+    g = buckets[0].shape[1]
+    r = r0
+    while r < r0 + g:
+        w = r // G
+        e = min((w + 1) * G, r0 + g)              # rows of window w here
+        seg = buckets if e - r == g else tuple(
+            c[:, r - r0:e - r0] for c in buckets)
+        while seg[0].shape[1] > 1:
+            m = seg[0].shape[1]
+            h = m // 2
+            s = ec.ec_add(tuple(c[:, :h] for c in seg),
+                          tuple(c[:, h:2 * h] for c in seg),
+                          counted_as="bucket_fold")
+            seg = s if m % 2 == 0 else tuple(
+                torch.cat([a, c[:, 2 * h:]], 1) for a, c in zip(s, seg))
+        if w in run:
+            seg = ec.ec_add(run.pop(w), seg, counted_as="bucket_fold")
+        if e == (w + 1) * G:
+            for a, c in zip(acc, seg):
+                a[:, w] = c[:, 0]
+        else:
+            run[w] = seg
+        r = e
 
 
 def _horner(wres, c: int, curve: CurveLM):
@@ -184,20 +225,12 @@ def msm_fixed(table, scalars, c: int, curve: CurveLM = G1_LM):
         return tuple(t.new_zeros((0, t.shape[0])) for t in table)
     keys = _digits(scalars, c).movedim(1, 0).reshape(k, W * n)  # (k, W n)
     flat = tuple(t.reshape(t.shape[0], W * n) for t in table)
-    res = []
-    g = _chunk(W * n, k, curve.F.L)
-    for r0 in range(0, k, g):
-        sorted_dg, perm = torch.sort(keys[r0:r0 + g], dim=1, stable=True)
-        pts = tuple(c_[:, perm] for c_ in flat)               # (24, g, W n)
-        scanned = bucket.seg_scan(pts, sorted_dg)
-        buckets = _bucket_totals(curve, scanned, sorted_dg, c)
-        res.append(bucket.window_sum(buckets))                # (24, g)
-    return tuple(torch.cat([r[i] for r in res], 1).movedim(0, -1)
-                 for i in range(3))
+    return tuple(w.movedim(0, -1)
+                 for w in _window_rows(flat, keys, None, c, curve))
 
 
 # Points a chunk of the public MSM (``pippenger_lm.py:184-209``): each
-# chunk's rows of this many lanes go through B3; partial results add.
+# chunk's rows of this many lanes go through B3.
 POINT_CHUNK = 1 << 17
 
 
@@ -207,9 +240,11 @@ def msm(points, scalars, c: int | None = None,
     on G1, 48 on G2); scalars (n, 16) canonical -> (X, Y, Z) of (L,).
     c defaults to MsmConfig's window, else the window of n.  The
     list is padded with zero scalars (digit 0: no bucket picks a pad) to
-    whole chunks of `point_chunk` points; the chunks are the groups of
-    one grouped MSM (rows of at most `point_chunk` lanes, one Horner fold
-    for all), and their partial results add, one EC add a chunk."""
+    G whole chunks of `point_chunk` points, one row of digits a chunk
+    and window (W G rows, window-major, scanned by `_bucket_rows`).  The
+    chunks' bucket totals add up by window (`_fold`: G - 1 adds a bucket
+    of a window), then one window sum runs over the W rows of sums and
+    one Horner fold over one lane."""
     n = scalars.shape[0]
     if any(p.shape[0] != n for p in points):
         raise ValueError(f"msm: {n} scalars for {points[0].shape[0]} points")
@@ -218,12 +253,20 @@ def msm(points, scalars, c: int | None = None,
     if c is None:
         c = MsmConfig.from_env().window or default_window(n)
     m = min(n, point_chunk)
-    npad = -(-n // m) * m
-    points = tuple(torch.nn.functional.pad(p, (0, 0, 0, npad - n))
-                   for p in points)
-    scalars = torch.nn.functional.pad(scalars, (0, 0, 0, npad - n))
-    parts = msm_grouped(points, scalars, (m,) * (npad // m), c, curve)
-    acc = parts[0]
-    for part in parts[1:]:
-        acc = curve.add(acc, part)
-    return acc
+    G = -(-n // m)
+    pts = tuple(torch.nn.functional.pad(p, (0, 0, 0, G * m - n)).movedim(
+        -1, 0).contiguous() for p in points)                 # (L, G m)
+    digits = _digits(torch.nn.functional.pad(scalars, (0, 0, 0, G * m - n)),
+                     c)                                      # (W, G m)
+    W = digits.shape[0]
+    offs = (torch.arange(W * G, device=scalars.device,
+                         dtype=torch.int64) % G) * m
+    acc, run = None, {}
+    for r0, b in _bucket_rows(pts, digits.reshape(W * G, m), offs, c, curve):
+        if acc is None:
+            acc = tuple(c_.new_empty((c_.shape[0], W, c_.shape[2]))
+                        for c_ in b)                         # (L, W, B - 1)
+        _fold(acc, run, b, r0, G)
+    wres = bucket.window_sum(acc)                            # (L, W)
+    acc = _horner(tuple(w[..., None] for w in wres), c, curve)
+    return tuple(c_[:, 0] for c_ in acc)

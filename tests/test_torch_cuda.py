@@ -363,27 +363,43 @@ def test_window_sum_segments_on_card(cuda, s):
         got, bucket.window_sum_chunked(b, s)))
 
 
+def _plain_window_sum(b, rows: int = 2):
+    """The window sum's plain route, `rows` rows at a time (a plain suffix
+    scan of 2 x 65,535 G1 buckets holds ~4 GB of int64 products)."""
+    parts = [bucket.window_sum_plain(tuple(c[:, r:r + rows] for c in b))
+             for r in range(0, b[0].shape[1], rows)]
+    return tuple(torch.cat([p[i] for p in parts], 1) for i in range(3))
+
+
 @pytest.mark.cuda
-def test_msm_window_sum_on_card(cuda, monkeypatch):
-    """The public MSM over 2^17 points (SRS points drawn with repeats,
-    seeded scalars) at c = 16, so its window sums run on two rows of
-    65,535 buckets, eight calls: equal in affine form to the same MSM
-    with the window sums on the plain route."""
+@pytest.mark.parametrize("log_n", [17, 18])
+def test_msm_window_sum_on_card(cuda, monkeypatch, log_n):
+    """The public MSM over 2^17 and 2^18 points (SRS points drawn with
+    repeats, seeded scalars) at c = 16: one chunk of 2^17 points, or two,
+    whose bucket totals the fold adds (one bucket_fold launch a window),
+    then one window sum on 16 rows of 65,535 buckets: equal in affine
+    form to the same MSM with the window sum on the plain route."""
     from tpukzg_torch.curve import g1 as g1m
     from tpukzg_torch.kernels import _build
     from tpukzg_torch.msm.pippenger_lm import msm
     pool = tuple(torch.from_numpy(c.T.copy()).to(cuda) for c in srs_points())
     gen = torch.Generator(device="cuda").manual_seed(17)
-    idx = torch.randint(0, pool[0].shape[0], (1 << 17,), generator=gen,
+    idx = torch.randint(0, pool[0].shape[0], (1 << log_n,), generator=gen,
                         device=cuda)
     pts = tuple(c[idx].contiguous() for c in pool)
-    k = torch.randint(0, 1 << 16, (1 << 17, 16), generator=gen, device=cuda,
-                      dtype=torch.int32)
+    k = torch.randint(0, 1 << 16, (1 << log_n, 16), generator=gen,
+                      device=cuda, dtype=torch.int32)
     k[..., 15] &= 0x3FFF
-    before = _build.launches["window_sum"]
+    W, G = 16, 1 << (log_n - 17)
+    before = dict(_build.launches)
     got = msm(pts, k, c=16)
-    assert _build.launches["window_sum"] - before == 8
-    monkeypatch.setattr(bucket, "window_sum", bucket.window_sum_plain)
+    diff = {name: c - before.get(name, 0)
+            for name, c in _build.launches.items()
+            if c != before.get(name, 0)}
+    assert diff == {"bucket_scan": W * G // 2, "window_sum": 1,
+                    "ec_double": W - 1, "ec_add": W,
+                    **({"bucket_fold": W * (G - 1)} if G > 1 else {})}, diff
+    monkeypatch.setattr(bucket, "window_sum", _plain_window_sum)
     want = msm(pts, k, c=16)
     assert g1m.compress_points(tuple(c.cpu()[None] for c in got)) == \
         g1m.compress_points(tuple(c.cpu()[None] for c in want))
@@ -1041,19 +1057,22 @@ def test_g2_windowed_ladder_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_msm_g2_on_card(cuda, monkeypatch):
-    """The public msm over 2^17 G2 points [s_i] G2 (made by the windowed
-    ladder on the card) with seeded scalars, at its default window: equal
-    in affine form to [sum k_i s_i mod r] G2 (one plain ladder), its
-    first two window sums affine-equal to the plain route on the very
-    buckets the MSM gave them, and its launches those of the G2
-    instances alone: a bucket scan and a window sum a window row, a run
-    of doublings and an add a Horner step."""
+@pytest.mark.parametrize("log_n", [17, 18])
+def test_msm_g2_on_card(cuda, monkeypatch, log_n):
+    """The public msm over 2^17 and 2^18 G2 points [s_i] G2 (made by the
+    windowed ladder on the card, 2^17 lanes a ladder) with seeded
+    scalars, at its default window: equal in affine form to [sum k_i s_i
+    mod r] G2 (one plain ladder), its one window sum affine-equal to the
+    plain route on the first and last of the W rows of buckets the MSM
+    gave it, and its launches those of the G2 instances alone: a bucket
+    scan a chunk's window row, a fold add a window for each chunk after
+    the first, one window sum, a run of doublings and an add a Horner
+    step."""
     from tpukzg_torch.curve.weierstrass_lm import G2_LM, G2_LM_PLAIN
     from tpukzg_torch.field.mont import R_MOD
     from tpukzg_torch.kernels import _build
     from tpukzg_torch.msm.pippenger_lm import default_window, msm
-    n = 1 << 17
+    n, ladder = 1 << log_n, 1 << 17
     gen = torch.Generator(device="cuda").manual_seed(29)
     s = torch.randint(0, 1 << 16, (n, 16), generator=gen, device=cuda,
                       dtype=torch.int32)
@@ -1062,15 +1081,20 @@ def test_msm_g2_on_card(cuda, monkeypatch):
     s[..., 15] &= 0x3FFF
     k[..., 15] &= 0x3FFF
     g = _g2_gen(cuda)
-    pts = tuple(c.T.contiguous() for c in G2_LM.scalar_mul(g, s))
+    parts = [G2_LM.scalar_mul(g, s[i:i + ladder]) for i in range(0, n, ladder)]
+    pts = tuple(torch.cat([p[c] for p in parts], 1).T.contiguous()
+                for c in range(3))
+    del parts
     held = []
     kernel_ws = bucket.window_sum
 
     def window_sum(b):
         out = kernel_ws(b)
-        if len(held) < 2:
+        for r in (0, b[0].shape[1] - 1):
+            row = tuple(c[:, r:r + 1] for c in b)
             held.append(bool(G2_LM_PLAIN.eq(
-                out, bucket.window_sum_plain(b)).all()))
+                tuple(c[:, r:r + 1] for c in out),
+                bucket.window_sum_plain(row)).all()))
         return out
 
     monkeypatch.setattr(bucket, "window_sum", window_sum)
@@ -1080,10 +1104,12 @@ def test_msm_g2_on_card(cuda, monkeypatch):
             for name, c in _build.launches.items()
             if c != before.get(name, 0)}
     c = default_window(n)
-    W = -(-256 // c)
+    W, G = -(-256 // c), n // ladder
     assert held == [True, True]
-    assert diff == {"bucket_scan_g2": W, "window_sum_g2": W,
-                    "ec_double_g2": W - 1, "ec_add_g2": W}, diff
+    assert diff == {"bucket_scan_g2": W * G, "window_sum_g2": 1,
+                    "ec_double_g2": W - 1, "ec_add_g2": W,
+                    **({"bucket_fold_g2": W * (G - 1)} if G > 1 else {})}, \
+        diff
     as_int = lambda t: [int.from_bytes(r.astype("<u2").tobytes(), "little")
                         for r in t.cpu().numpy()]
     dot = sum(a * b for a, b in zip(as_int(k), as_int(s))) % R_MOD

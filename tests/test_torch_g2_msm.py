@@ -175,7 +175,8 @@ def test_g2_msm_vs_golden_and_pippenger(n, c):
 
 def test_g2_msm_in_chunks_vs_golden():
     """The public msm over 37 G2 points in chunks of 16 points (three
-    groups of one grouped MSM, the last padded), against golden."""
+    chunks whose buckets add up by window, the last padded), against
+    golden."""
     points, k, want = _msm_case(37)
     got = pippenger_lm.msm(points, k, c=4, point_chunk=16, curve=G2_LM)
     assert affine(got) == want

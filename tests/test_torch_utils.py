@@ -153,13 +153,13 @@ def test_msm_window_and_chunk_from_env(monkeypatch):
     pts = tuple(torch.from_numpy(c[:, :6].T.copy()) for c in srs_points())
     k = torch.from_numpy(FR.from_int([3, 5, 7, 11, 13, 2 ** 200 + 1]))
     seen = []
-    real = pippenger_lm.msm_grouped
+    real = pippenger_lm._horner
 
-    def spy(points, scalars, groups, c, curve=pippenger_lm.G1_LM):
+    def spy(wres, c, curve):
         seen.append(c)
-        return real(points, scalars, groups, c, curve)
+        return real(wres, c, curve)
 
-    monkeypatch.setattr(pippenger_lm, "msm_grouped", spy)
+    monkeypatch.setattr(pippenger_lm, "_horner", spy)
     monkeypatch.delenv("TPUKZG_MSM_WINDOW", raising=False)
     want = pippenger_lm.msm(pts, k)
     monkeypatch.setenv("TPUKZG_MSM_WINDOW", "5")

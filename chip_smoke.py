@@ -103,9 +103,11 @@ Phases, each printed on its own line:
      each G2 instance against its plain version on that MSM's shapes and
      timed (ec_add_g2, ec_double_g2, bucket_scan_g2, window_sum_g2 in the
      kernels line); msm_batch with k = 16 rows over the n = 4096
-     Lagrange points equal to 16 calls of msm, and B3 on its first chunk
-     of rows and the window sum on its first buckets against their plain
-     versions; then the multi-GPU paths
+     Lagrange points equal to 16 calls of msm, its launches those of
+     MSM_BATCH_LAUNCHES (one window sum, on its 24 x 16 slots), and B3
+     on its first chunk of rows and the window sum on its buckets (16
+     rows) against their plain versions; one window sum a call of an MSM
+     on every path (WINDOW_SUMS); then the multi-GPU paths
      through tpukzg_torch.dist.launch at world size = the cards present
      (NCCL, one card a rank, the kernels built by this process first):
      ShardedMsm over 2^22 points equal to the single-device msm,
@@ -140,13 +142,10 @@ import traceback
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-# Peak rates of one H100 SXM (data sheet): HBM3 bytes/s, and the 67 TFLOP/s
-# float32 rate outside the tensor cores, taken as the ceiling for 32-bit
-# integer multiply-adds (one multiply-add = 2 operations).
-HBM_BYTES_S = 3.35e12
-OPS_S = 67e12
-# A 32x32->64-bit word product is two multiply-adds (low and high half).
-OPS_PER_WORD_PRODUCT = 4
+from h100bench.counters import count_dispatch  # noqa: E402
+from h100bench.trace import union  # noqa: E402
+from h100bench.work import (HBM_BYTES_S, INT_OPS_S,  # noqa: E402
+                            OPS_PER_WORD_PRODUCT)
 
 
 def montmul_ops(words: int) -> int:
@@ -164,8 +163,10 @@ REPS = 10          # timed launches per kernel (median reported)
 
 
 def bound_ms(nbytes: float, ops: float):
+    """The least ms on the card (h100bench/work.py's peaks) and what
+    bounds it."""
     tb = nbytes / HBM_BYTES_S * 1e3
-    to = ops / OPS_S * 1e3
+    to = ops / INT_OPS_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -239,25 +240,6 @@ def timed_once(torch, fn):
     return out, s.elapsed_time(e)
 
 
-def count_dispatch(torch, fn) -> int:
-    """Tensor ops dispatched while fn runs (the eager path's launch count,
-    roughly one device kernel each), plus the port's own launches."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from tpukzg_torch.kernels import _build
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.n += 1
-            return func(*args, **(kwargs or {}))
-
-    before = sum(_build.launches.values())
-    with Count():
-        fn()
-    return Count.n + sum(_build.launches.values()) - before
-
-
 def device_busy(torch, fn):
     """One run of fn under torch.profiler, device activity only ->
     (wall s, device-busy s, device kernels, top five by device time, the
@@ -277,11 +259,7 @@ def device_busy(torch, fn):
         s, t = e.time_range.start, e.time_range.end
         spans.append((s, t))
         by_name[e.name] += t - s
-    busy, reach = 0.0, float("-inf")
-    for s, t in sorted(spans):
-        if t > reach:
-            busy += t - max(s, reach)
-            reach = t
+    busy = sum(t - s for s, t in union(spans))
     top = [(name[:60], round(us * 1e-3, 3))
            for name, us in by_name.most_common(5)]
     # the trace's event tree is cyclic garbage (about eleven objects an
@@ -1252,9 +1230,9 @@ def setup_path(torch, ts, triples, paths, say_card):
              f"card, {b2['call_ms']:.4f} ms a call (plain "
              f"{b2['plain_ms']:.2f} ms, bound {b2['bound_ms']:.4f} ms)")
     g1 = tuple(c.movedim(-1, 0) for c in gen.lagrange_g1)
-    ops_g1 = count_dispatch(torch, lambda: G1_LM.double(g1))
-    ops_g2 = count_dispatch(torch, lambda: G2.add(G2.double(gen.g2_tau),
-                                                  gen.g2_gen))
+    ops_g1 = count_dispatch(lambda: G1_LM.double(g1))
+    ops_g2 = count_dispatch(lambda: G2.add(G2.double(gen.g2_tau),
+                                           gen.g2_gen))
     say_card(f"[setup_gen n={ref.n}] tensor ops dispatched (count_dispatch,"
              f" the port's launches included): a G1 double {ops_g1}, a G2 "
              f"double + add {ops_g2}")
@@ -1433,34 +1411,33 @@ def msm_inputs(torch, setup, log_n: int):
     return points, k
 
 
-def check_msm_route(torch, launches, window, n: int, L: int):
-    """The public msm's launches on n points (G1: L = 24, G2: 48) against
-    its route: W G window rows of a chunk of POINT_CHUNK points through
-    B3, in scan chunks of `_chunk` rows; one bucket_fold launch a row
-    added into a window (a scan chunk holds at most two rows of a
-    window here, so each launch adds one row: G - 1 a window); one
-    window sum on (L, W, 2^c - 1) buckets (`window`, the captured
-    input); W Horner adds, W - 1 runs of doublings -> the fold's
-    launches."""
-    from tpukzg_torch.msm.pippenger_lm import (POINT_CHUNK, _chunk,
-                                               default_window)
-    c = default_window(n)
-    W, G = -(-256 // c), -(-n // POINT_CHUNK)
-    rows = _chunk(min(n, POINT_CHUNK), W * G, L)
-    check(rows <= 2, f"{rows} window rows a scan chunk: a fold launch may "
-          "add more than one row")
-    g2 = "" if L == 24 else "_g2"
-    want = {"bucket_scan" + g2: -(-W * G // rows), "window_sum" + g2: 1,
-            "ec_add" + g2: W, "ec_double" + g2: W - 1}
-    if G > 1:
-        want["bucket_fold" + g2] = W * (G - 1)
+# The launches of the MSMs' one core (`pippenger_lm._msm_rows`): a B3 launch
+# a pass of rows, bucket_fold adds joining a slot's rows, one window sum a
+# call, W Horner adds and W - 1 runs of doublings.  The public msm on 2^20
+# points (c = 16, 16 windows of 8 chunks; passes of 2 rows on G1, 1 on G2)
+# by the coordinates' limbs; msm_batch at k = 16, n = 4096 (c = 11, 24
+# windows; 384 rows in passes of 75).
+MSM_2P20_LAUNCHES = {
+    24: {"bucket_scan": 64, "bucket_fold": 112, "window_sum": 1,
+         "ec_add": 16, "ec_double": 15},
+    48: {"bucket_scan_g2": 128, "bucket_fold_g2": 112, "window_sum_g2": 1,
+         "ec_add_g2": 16, "ec_double_g2": 15}}
+MSM_BATCH_LAUNCHES = {"bucket_scan": 6, "window_sum": 1, "ec_add": 24,
+                      "ec_double": 23}
+# Window-sum calls by path: one a call of an MSM (the verify's fold MSM, the
+# fixed-base MSM of a commit or proof batch, commit_coeff and open_coeff).
+WINDOW_SUMS = {"verify": 1, "commit_batch": 1, "proof_batch": 1, "coeff": 2,
+               "open3": 1, "commit_batch_gen": 1, "proof_batch_gen": 1,
+               "msm_2^20": 1, "msm_batch": 1, "msm_rows": 16}
+
+
+def check_launches(name, launches, want, window, shape):
+    """An MSM's launches (those launched at all) against `want`, and its
+    one window sum's buckets (`window`, the captured input) of `shape`."""
     got = {k: v for k, v in launches.items() if v}
-    check(got == want, f"the msm of {n} points launched {got}, not {want}")
-    shape = tuple(window[0].shape)
-    check(shape == (L, W, (1 << c) - 1),
-          f"the msm's one window sum ran on {shape} buckets, not "
-          f"{(L, W, (1 << c) - 1)}")
-    return want.get("bucket_fold" + g2, 0)
+    check(got == want, f"{name} launched {got}, not {want}")
+    check(tuple(window[0].shape) == shape, f"{name}'s one window sum ran "
+          f"on {tuple(window[0].shape)} buckets, not {shape}")
 
 
 def hold_fold(torch, acc, reps: int):
@@ -1479,7 +1456,7 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
     """The public MSM over 2^log_n points: the SRS's 2n points (known
     logs tau^i and L_i(tau), tau = 0xDEADBEEF) tiled, seeded scalars below
     2^254.  Check: the result equals [sum k_i d_i mod r] G1 (one ladder),
-    and its launches those of its route (`check_msm_route`).  Returns
+    and its launches MSM_2P20_LAUNCHES[24] (`check_launches`).  Returns
     the first B3 launch on a row of POINT_CHUNK lanes (its input, one
     row), the window sum's buckets and the launches' grids."""
     from tpukzg_torch.curve import g1 as g1m
@@ -1530,7 +1507,9 @@ def msm_path(torch, setup, paths, say_card, log_n: int = 20):
     ok = bool(G1_LM.eq(tuple(c[:, None] for c in out), want).all().item())
     check(ok, "the 2^20-point MSM differs from [sum k_i d_i] G1")
     check("window" in cap, "no window sum was captured in the MSM")
-    folds = check_msm_route(torch, paths["msm_2^20"], cap["window"], N, 24)
+    check_launches(f"the msm of {N} points", paths["msm_2^20"],
+                   MSM_2P20_LAUNCHES[24], cap["window"], (24, 16, 65535))
+    folds = MSM_2P20_LAUNCHES[24]["bucket_fold"]
     fold = hold_fold(torch, cap["window"], REPS)
     shapes = collections.Counter(sh for sh, _ in grids)
     by_shape = {f"{sh[0]}x{sh[1]}": dict(launches=c, grid=next(
@@ -1754,7 +1733,9 @@ def g2_kernels_path(torch, paths, say_card, reps: int, log_n: int = 20):
           f"the G2 MSM of 2^{log_n} points differs from [sum k_i d_i] G2")
     launched = {n_: c for n_, c in paths["g2_msm"].items() if c}
     check("window" in cap, "no window sum was captured in the G2 MSM")
-    folds = check_msm_route(torch, launched, cap["window"], N, 48)
+    check_launches(f"the G2 msm of {N} points", launched,
+                   MSM_2P20_LAUNCHES[48], cap["window"], (48, 16, 65535))
+    folds = MSM_2P20_LAUNCHES[48]["bucket_fold_g2"]
     c = default_window(N)
     nb = cap["window"][0].shape[2]
     seg = bucket.window_segment_for(
@@ -1829,9 +1810,9 @@ def g2_kernels_path(torch, paths, say_card, reps: int, log_n: int = 20):
 
 def msm_batch_path(torch, ts, paths, say_card, k: int = 16):
     """msm_batch with k seeded scalar rows over the n = 4096 Lagrange SRS
-    points against k calls of msm, in affine form.  Returns the first B3
-    launch on a chunk of rows of n digits and the first window sum's
-    buckets."""
+    points against k calls of msm, in affine form, and its launches
+    those of MSM_BATCH_LAUNCHES.  Returns the first B3 launch on a chunk
+    of rows of n digits and its one window sum's buckets."""
     from tpukzg_torch.curve.weierstrass_lm import G1_LM
     from tpukzg_torch.kernels import bucket
     from tpukzg_torch.msm.pippenger_lm import default_window, msm, msm_batch
@@ -1873,6 +1854,10 @@ def msm_batch_path(torch, ts, paths, say_card, k: int = 16):
              f"for the {k} calls ({json.dumps(paths['msm_rows'])})")
     check("rows" in cap, "no B3 launch on rows of n digits was captured")
     check("window" in cap, "no window sum was captured in msm_batch")
+    c = default_window(n)
+    check_launches(f"msm_batch k={k} n={n}", paths["msm_batch"],
+                   MSM_BATCH_LAUNCHES, cap["window"],
+                   (24, -(-256 // c) * k, (1 << c) - 1))
     return cap["rows"], cap["window"], dict(wall=wall, wall_rows=wall_rows)
 
 
@@ -2211,7 +2196,7 @@ def main() -> int:
         f"{k_main / (pipe_wall / len(batches)):.2f} verifications/s (k / "
         f"sustained s; compared, not checked: the host's spread is up to "
         f"2x) against the bench's {line['value']:.2f} [{card}]")
-    ops = count_dispatch(torch, lambda: tpukzg_torch.verify_blob_kzg_proof_batch(
+    ops = count_dispatch(lambda: tpukzg_torch.verify_blob_kzg_proof_batch(
         blobs, cs, pfs, ts))
     say(f"[slice k={k_main}] one more verify, counted: {ops} tensor ops "
         "dispatched to the card (kernel launches of the port included) "
@@ -2422,7 +2407,7 @@ def main() -> int:
     results.update(g2_kernels_path(torch, paths, say_card, REPS))
     (pts, seg), win, _ = msm_batch_path(torch, ts, paths, say_card)
     w = results["window_sum"]["other_shapes"]["msm_batch"] = check_window(
-        torch, win, REPS)
+        torch, win, REPS, rows=16)
     say_window(w, "msm_batch's")
     r = check_bucket(torch, pts, seg, REPS)
     r["check"] = ("affine-equal in every lane of msm_batch's first chunk of "
@@ -2488,6 +2473,9 @@ def main() -> int:
         for kern in need:
             check(paths[path].get(kern, 0) > 0,
                   f"{kern} was not launched on the {path} path")
+    for path, want in WINDOW_SUMS.items():
+        check(paths[path].get("window_sum", 0) == want, f"{path}: "
+              f"{paths[path].get('window_sum', 0)} window sums, not {want}")
 
     # 10. report
     fold = dict(b6["verify fold, Horner run"])
@@ -2744,7 +2732,7 @@ def verify_main(src: str) -> int:
     ts.blob.timing = False
     out = dict(src=src, k=256, walls=walls, wall_median=statistics.median(
         walls), phases=phases, launches=launches,
-        tensor_ops=count_dispatch(torch, one), card=card_line())
+        tensor_ops=count_dispatch(one), card=card_line())
     say(json.dumps(out))
     return 0
 

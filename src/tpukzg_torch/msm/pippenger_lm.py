@@ -4,17 +4,14 @@
 Sort-by-digit, then the segmented bucket scan (kernel B3 on the card),
 one gather of each bucket's last lane, and the window sum over buckets
 (the window-sum kernel on the card; the suffix scan and a tree sum on
-the CPU).  The grouped MSM (batch verify)
-then folds its windows by Horner; the fixed-base MSM (commit, open) has
-them folded into a table of [2^(c w)] P_i, so one sorted row of W n keys
-per MSM needs no doublings at all.  The public `msm` cuts a long point
-list into chunks of `POINT_CHUNK` points, one row of digits a chunk and
-window; as each chunk of rows leaves the scan, its bucket totals add
-into one accumulator of the W windows' buckets (buckets are linear in
-the points), and one window sum over those W rows and one Horner fold
-over one lane follow.  `msm_batch` runs k MSMs over
-one shared point list as W k rows of sorted digits and one Horner fold
-over k lanes.
+the CPU).  Every MSM here goes through one core, `_msm_rows`: its rows
+of digits make slots of G rows; each pass's bucket totals add into one
+accumulator of the slots' buckets (buckets are linear in the points),
+and one window sum runs over the slots a call.  `msm` has a slot a
+window of G chunks of `POINT_CHUNK` points, `msm_grouped` (batch verify)
+and `msm_batch` a slot of one row a window and MSM, and each folds its
+windows by Horner; `msm_fixed` (commit, open) has a slot of W n keys an
+MSM, the window weights in a table of [2^(c w)] P_i: no doublings.
 
 Every MSM here takes the curve: G1_LM (points (n, 24)) by default, or
 G2_LM (points (n, 48): c0's 24 limbs, then c1's).  The kernels pick
@@ -97,44 +94,52 @@ def _bucket_rows(pts_flat, rows, offs, c: int, curve: CurveLM):
         yield r0, _bucket_totals(curve, scanned, sorted_dg, c)
 
 
-def _window_rows(pts_flat, rows, offs, c: int, curve: CurveLM):
-    """The window sum of each of R rows of n digits (`_bucket_rows`'
-    rows) -> coords (L, R)."""
-    wres = [bucket.window_sum(b)
-            for _, b in _bucket_rows(pts_flat, rows, offs, c, curve)]
-    return tuple(torch.cat([w[i] for w in wres], -1) for i in range(3))
-
-
 def _fold(acc, run, buckets, r0: int, G: int):
     """Adds the bucket totals of rows r0 .. r0 + g - 1 (coords (L, g,
-    B - 1); row r is chunk r % G of window r // G) into their windows.
-    A window's rows here add up by a tree (one launch a level), then
-    into its running sum from earlier chunks of rows (`run`, by window);
-    its last row puts the sum into acc (coords (L, W, B - 1)).  Every add
-    is counted as bucket_fold: G - 1 adds a bucket of a window."""
-    g = buckets[0].shape[1]
-    r = r0
-    while r < r0 + g:
-        w = r // G
-        e = min((w + 1) * G, r0 + g)              # rows of window w here
-        seg = buckets if e - r == g else tuple(
-            c[:, r - r0:e - r0] for c in buckets)
-        while seg[0].shape[1] > 1:
-            m = seg[0].shape[1]
+    B - 1); row r is chunk r % G of slot r // G) into acc (coords (L,
+    slots, B - 1)): the pass's whole slots by one tree (a bucket_fold
+    launch a level) and one write; a slot it splits by a tree, then into
+    its running sum in `run`, which the slot's last rows write."""
+    e = r0 + buckets[0].shape[1]
+    a = min(-(-r0 // G) * G, e)               # the first whole slot's row
+    b = max(e // G * G, a)                    # the last whole slot's end
+    for lo, hi in ((r0, a), (a, b), (b, e)):
+        if lo == hi:
+            continue
+        s, t = lo // G, -(-hi // G)
+        seg = buckets if hi - lo == e - r0 else tuple(
+            c[:, lo - r0:hi - r0] for c in buckets)
+        if t > s + 1:                             # (L, t - s, G, B - 1)
+            seg = tuple(c.unflatten(1, (t - s, G)) for c in seg)
+        while seg[0].shape[-2] > 1:
+            m = seg[0].shape[-2]
             h = m // 2
-            s = ec.ec_add(tuple(c[:, :h] for c in seg),
-                          tuple(c[:, h:2 * h] for c in seg),
-                          counted_as="bucket_fold")
-            seg = s if m % 2 == 0 else tuple(
-                torch.cat([a, c[:, 2 * h:]], 1) for a, c in zip(s, seg))
-        if w in run:
-            seg = ec.ec_add(run.pop(w), seg, counted_as="bucket_fold")
-        if e == (w + 1) * G:
-            for a, c in zip(acc, seg):
-                a[:, w] = c[:, 0]
+            sums = ec.ec_add(tuple(c[..., :h, :] for c in seg),
+                             tuple(c[..., h:2 * h, :] for c in seg),
+                             counted_as="bucket_fold")
+            seg = sums if m % 2 == 0 else tuple(
+                torch.cat([u, c[..., 2 * h:, :]], -2)
+                for u, c in zip(sums, seg))
+        if s in run:
+            seg = ec.ec_add(run.pop(s), seg, counted_as="bucket_fold")
+        if hi % G:
+            run[s] = seg
         else:
-            run[w] = seg
-        r = e
+            for dst, c in zip(acc, seg):
+                dst[:, s:t] = c.flatten(1, -2)
+
+
+def _msm_rows(pts_flat, rows, offs, c: int, curve: CurveLM, G: int = 1):
+    """The window sums of R // G slots of G rows of n digits (row r is
+    chunk r % G of slot r // G; `_bucket_rows`' rows): each pass's bucket
+    totals add into their slots' buckets (`_fold`), then one window sum
+    runs over the slots -> coords (L, R // G)."""
+    acc = tuple(p.new_empty((p.shape[0], rows.shape[0] // G, (1 << c) - 1))
+                for p in pts_flat)                     # (L, slots, B - 1)
+    run = {}
+    for r0, b in _bucket_rows(pts_flat, rows, offs, c, curve):
+        _fold(acc, run, b, r0, G)
+    return bucket.window_sum(acc)
 
 
 def _horner(wres, c: int, curve: CurveLM):
@@ -172,8 +177,7 @@ def msm_grouped(points, scalars, groups, c: int, curve: CurveLM = G1_LM):
     digits = _digits(scal.reshape(G * nmax, 16), c)          # (W, G*nmax)
     W = digits.shape[0]
     offs = (torch.arange(W * G, device=dev, dtype=torch.int64) % G) * nmax
-    wres = _window_rows(pts_flat, digits.reshape(W * G, nmax), offs, c,
-                        curve)
+    wres = _msm_rows(pts_flat, digits.reshape(W * G, nmax), offs, c, curve)
     acc = _horner(tuple(w.reshape(-1, W, G) for w in wres), c, curve)
     return [tuple(c_[:, i] for c_ in acc) for i in range(G)]
 
@@ -196,7 +200,7 @@ def msm_batch(points, scalars, c: int | None = None,
     pts = tuple(p.movedim(-1, 0).contiguous() for p in points)   # (L, n)
     digits = _digits(scalars, c)                                 # (W, k, n)
     W = digits.shape[0]
-    wres = _window_rows(pts, digits.reshape(W * k, n), None, c, curve)
+    wres = _msm_rows(pts, digits.reshape(W * k, n), None, c, curve)
     acc = _horner(tuple(w.reshape(-1, W, k) for w in wres), c, curve)
     return tuple(a.movedim(0, -1) for a in acc)
 
@@ -226,7 +230,7 @@ def msm_fixed(table, scalars, c: int, curve: CurveLM = G1_LM):
     keys = _digits(scalars, c).movedim(1, 0).reshape(k, W * n)  # (k, W n)
     flat = tuple(t.reshape(t.shape[0], W * n) for t in table)
     return tuple(w.movedim(0, -1)
-                 for w in _window_rows(flat, keys, None, c, curve))
+                 for w in _msm_rows(flat, keys, None, c, curve))
 
 
 # Points a chunk of the public MSM (``pippenger_lm.py:184-209``): each
@@ -241,10 +245,9 @@ def msm(points, scalars, c: int | None = None,
     c defaults to MsmConfig's window, else the window of n.  The
     list is padded with zero scalars (digit 0: no bucket picks a pad) to
     G whole chunks of `point_chunk` points, one row of digits a chunk
-    and window (W G rows, window-major, scanned by `_bucket_rows`).  The
-    chunks' bucket totals add up by window (`_fold`: G - 1 adds a bucket
-    of a window), then one window sum runs over the W rows of sums and
-    one Horner fold over one lane."""
+    and window (W G rows, window-major): `_msm_rows` adds the chunks'
+    bucket totals by window (G - 1 adds a bucket of a window) before its
+    one window sum, then one Horner fold runs over one lane."""
     n = scalars.shape[0]
     if any(p.shape[0] != n for p in points):
         raise ValueError(f"msm: {n} scalars for {points[0].shape[0]} points")
@@ -261,12 +264,6 @@ def msm(points, scalars, c: int | None = None,
     W = digits.shape[0]
     offs = (torch.arange(W * G, device=scalars.device,
                          dtype=torch.int64) % G) * m
-    acc, run = None, {}
-    for r0, b in _bucket_rows(pts, digits.reshape(W * G, m), offs, c, curve):
-        if acc is None:
-            acc = tuple(c_.new_empty((c_.shape[0], W, c_.shape[2]))
-                        for c_ in b)                         # (L, W, B - 1)
-        _fold(acc, run, b, r0, G)
-    wres = bucket.window_sum(acc)                            # (L, W)
+    wres = _msm_rows(pts, digits.reshape(W * G, m), offs, c, curve, G)
     acc = _horner(tuple(w[..., None] for w in wres), c, curve)
     return tuple(c_[:, 0] for c_ in acc)

@@ -325,9 +325,9 @@ def test_bucket_kernel_long_rows_on_card(cuda):
                                   (75, 2047)],
                          ids=["msm", "verify", "fixed", "batch"])
 def test_window_sum_kernel_on_card(cuda, g, nb):
-    """The window sum at the shapes the MSMs give it (the public MSM's
-    two rows of 65,535 buckets, the batch verify's fold, the fixed-base
-    MSM, a chunk of msm_batch's rows at n = 4096) with the launcher's
+    """The window sum at the shapes the MSMs give it (two of the public
+    MSM's rows of 65,535 buckets, the batch verify's fold, the fixed-base
+    MSM at k = 3, 75 of msm_batch's rows at n = 4096) with the launcher's
     s: affine-equal to the plain route, the limbs of its decomposition
     in tensor code, the same limbs from two launches, one launch counted
     a call, and the grid reported."""
@@ -572,6 +572,34 @@ def _card_triples(ts, k, seed):
 
 
 @pytest.mark.cuda
+def test_prover_one_window_sum_a_call_on_card(cuda, monkeypatch):
+    """n = 16, three blobs, the fixed-base MSM in passes of one row: the
+    commit batch, the proof batch and commit_coeff run one window sum a
+    call and give the CPU's bytes (commit_coeff the commit batch's)."""
+    import random
+    import tpukzg_torch as tt
+    from tpukzg_torch.curve import g1 as g1m
+    from tpukzg_torch.kernels import _build
+    monkeypatch.setenv("TPUKZG_MSM_WINDOW_CHUNK", "1")
+    rng = random.Random(9)
+    blobs = [b"".join(rng.randrange(FR.modulus).to_bytes(32, "big")
+                      for _ in range(16)) for _ in range(3)]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        ts = tt.generate_insecure_setup(0xDEADBEEF, 16, device=dev)
+        coeff = ts.kzg.interpolate(ts.blob._blob_natural_mont(blobs))
+        before = _build.launches["window_sum"]
+        cs = tt.blob_to_kzg_commitment_batch(blobs, ts)
+        pfs = tt.compute_blob_kzg_proof_batch(blobs, cs, ts)
+        cc = g1m.compress_points(tuple(
+            c.cpu() for c in ts.kzg.commit_coeff(coeff)))
+        got[dev] = (cs, pfs, cc, _build.launches["window_sum"] - before)
+    assert got["cuda"][:3] == got["cpu"][:3]
+    assert got["cpu"][2] == got["cpu"][0]
+    assert got["cuda"][3] == 3
+
+
+@pytest.mark.cuda
 def test_pipeline_schedule_on_card(cuda):
     """n = 16: bench.py's pipelined schedule over every kind of batch
     gives the synchronous path's verdicts, which are the expected ones
@@ -810,10 +838,11 @@ def test_windowed_ladder_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_msm_batch_on_card(cuda):
-    """msm_batch over the 32 SRS points, k = 5 seeded rows, through the
-    bucket-scan kernel: equal in affine form to one msm a row on the
-    card and to the same batch on the CPU."""
+def test_msm_batch_on_card(cuda, monkeypatch):
+    """msm_batch over the 32 SRS points, k = 5 seeded rows (c = 4: 320
+    rows), in passes of 7 rows through the bucket-scan kernel and one
+    window sum on the 320 slots: equal in affine form to one msm a row on
+    the card and to the same batch on the CPU."""
     from tpukzg_torch.curve import g1 as g1m
     from tpukzg_torch.kernels import _build
     from tpukzg_torch.msm.pippenger_lm import msm, msm_batch
@@ -823,9 +852,14 @@ def test_msm_batch_on_card(cuda):
                       dtype=torch.int32)
     k[..., 15] &= 0x3FFF
     k[2] = 0
-    before = _build.launches["bucket_scan"]
+    monkeypatch.setenv("TPUKZG_MSM_WINDOW_CHUNK", "7")
+    before = dict(_build.launches)
     got = msm_batch(tuple(c.to(cuda) for c in pool), k.to(cuda))
-    assert _build.launches["bucket_scan"] > before
+    diff = {name: c - before.get(name, 0)
+            for name, c in _build.launches.items()
+            if c != before.get(name, 0)}
+    assert diff == {"bucket_scan": -(-320 // 7), "window_sum": 1,
+                    "ec_add": 64, "ec_double": 63}, diff
     want = msm_batch(pool, k)
     rows = [msm(tuple(c.to(cuda) for c in pool), k[i].to(cuda))
             for i in range(5)]

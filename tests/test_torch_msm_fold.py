@@ -1,22 +1,28 @@
-"""The public msm's route on the CPU: the point chunks' bucket totals add
-up by window (`pippenger_lm._fold`) before one window sum over the W
-windows.  Held against the route it replaced (one window sum a chunk's
-rows, the chunks' partial results added) over G1 and against golden's
-direct sum over G2, at one chunk, three and eight (the last padded).
-Tolerance: points equal in affine form (projective coordinates depend on
-the order of the additions)."""
+"""The MSMs' one core on the CPU (`pippenger_lm._msm_rows`): each pass's
+bucket totals add into their slots (`pippenger_lm._fold`) before one
+window sum a call.  The public msm over G1 is held against the generic
+trailing-layout `Pippenger(G1)` and golden's direct sum, and over G2
+against golden's sum, at one chunk, three and eight (the last padded);
+every entry point (msm, msm_grouped, msm_batch, msm_fixed) runs one
+window sum on its slots' buckets and gives golden's sums, and
+passes of three rows that end inside the slots' list (and, for msm,
+inside a slot) give golden's sums.  Tolerance: points equal in affine
+form (projective coordinates depend on the order of the additions)."""
 
+import functools
 import random
 
 import pytest
 import torch
 
 import golden.model as gold
-from tpukzg_torch.curve.weierstrass_lm import (G1_LM, G1_LM_PLAIN, G2_LM,
-                                               G2_LM_PLAIN)
-from tpukzg_torch.field.mont import FR
+from tpukzg_torch.curve import g1 as g1m
+from tpukzg_torch.curve.g1 import G1
+from tpukzg_torch.curve.weierstrass_lm import G1_LM_PLAIN, G2_LM, G2_LM_PLAIN
+from tpukzg_torch.field.mont import FP, FR
 from tpukzg_torch.kernels import bucket, ec
 from tpukzg_torch.msm import pippenger_lm
+from tpukzg_torch.msm.pippenger import Pippenger
 
 from torch_cases import g2_limbs, srs_points
 
@@ -38,20 +44,21 @@ def _case(n, pool, seed):
     return pts, torch.as_tensor(FR.from_int(ks)), idx, ks
 
 
-def _grouped_route(points, scalars, chunk, c, curve):
-    """The route `msm` took before the fold: the chunks as the groups of
-    one grouped MSM (a window sum over each chunk's rows), then one add a
-    chunk."""
-    n = scalars.shape[0]
-    m = min(n, chunk)
-    pad = -(-n // m) * m - n
-    pts = tuple(torch.nn.functional.pad(p, (0, 0, 0, pad)) for p in points)
-    ks = torch.nn.functional.pad(scalars, (0, 0, 0, pad))
-    parts = pippenger_lm.msm_grouped(pts, ks, (m,) * (-(-n // m)), c, curve)
-    acc = parts[0]
-    for part in parts[1:]:
-        acc = curve.add(acc, part)
-    return acc
+@functools.lru_cache(maxsize=1)
+def _gold_pool():
+    """srs_points() as golden G1 points."""
+    x, y, _ = g1m.normalize(tuple(torch.as_tensor(c.T.copy())
+                                  for c in srs_points()))
+    return [gold.g1_from_affine(xy) for xy in zip(
+        FP.to_int(FP.from_mont(x)), FP.to_int(FP.from_mont(y)))]
+
+
+def _golden(idx, ks):
+    """golden's direct sum sum_i [k_i] P_idx[i] over srs_points() ->
+    coords (24,) (Z = 1; (0, 1, 0) for infinity)."""
+    xy = gold.g1_affine(gold.g1_msm([_gold_pool()[i] for i in idx], ks))
+    return tuple(torch.as_tensor(FP.to_mont_host(v))
+                 for v in ((0, 1, 0) if xy is None else (*xy, 1)))
 
 
 def _same(curve, a, b) -> bool:
@@ -62,11 +69,13 @@ def _same(curve, a, b) -> bool:
 @pytest.mark.parametrize("chunk", CHUNKS)
 def test_msm_fold_g1_vs_grouped_route(chunk):
     """G1: msm over 37 points (a zero scalar, repeated points) at c = 4
-    equals the grouped route over the same chunks in affine form."""
-    pts, k, _, _ = _case(N, srs_points(), chunk)
+    equals the generic Pippenger(G1) over the same points (its own
+    trailing-layout scan and window sums) and golden's direct sum, in
+    affine form."""
+    pts, k, idx, ks = _case(N, srs_points(), chunk)
     got = pippenger_lm.msm(pts, k, c=4, point_chunk=chunk)
-    want = _grouped_route(pts, k, chunk, 4, G1_LM)
-    assert _same(G1_LM_PLAIN, got, want)
+    assert _same(G1_LM_PLAIN, got, Pippenger(G1).msm(pts, k, c=4))
+    assert _same(G1_LM_PLAIN, got, _golden(idx, ks))
 
 
 @pytest.mark.parametrize("chunk", CHUNKS)
@@ -86,13 +95,42 @@ def test_msm_fold_g2_vs_golden(chunk):
     assert _same(G2_LM_PLAIN, got, want)
 
 
-@pytest.mark.parametrize("n,chunk", [(11, 16), (11, 4), (20, 5)])
-def test_msm_one_window_sum_a_call(monkeypatch, n, chunk):
-    """One msm call runs one window sum, on its W rows of 2^c - 1
-    buckets, and the fold adds G - 1 rows into each window (G chunks):
-    none at one chunk."""
+def _entry(entry, pts, k, chunk, c):
+    """One entry point of pippenger_lm on the case: (its results, the
+    slots of its window sum, G, the scalar rows (n, 16) of its MSMs, the
+    point slices (start, end) they run over)."""
+    n, W = k.shape[0], -(-256 // c)
+    rows = torch.stack([k, k.roll(1, 0), k.flip(0)])     # msm_batch, fixed
+    if entry == "msm":
+        G = -(-n // min(n, chunk))
+        return ([pippenger_lm.msm(pts, k, c=c, point_chunk=chunk)], W, G,
+                [k], [(0, n)])
+    if entry == "grouped":
+        got = pippenger_lm.msm_grouped(pts, k, (4, 7), c)
+        return got, 2 * W, 1, [k[:4], k[4:]], [(0, 4), (4, n)]
+    if entry == "batch":
+        out = pippenger_lm.msm_batch(pts, rows, c)
+    else:
+        out = pippenger_lm.msm_fixed(pippenger_lm.build_fixed_table(pts, c),
+                                     rows, c)
+    return ([tuple(x[i] for x in out) for i in range(3)],
+            3 * W if entry == "batch" else 3, 1, list(rows), [(0, n)] * 3)
+
+
+@pytest.mark.parametrize("entry,n,chunk", [
+    pytest.param("msm", 11, 16, id="11-16"),
+    pytest.param("msm", 11, 4, id="11-4"),
+    pytest.param("msm", 20, 5, id="20-5"),
+    pytest.param("grouped", 11, None, id="grouped"),
+    pytest.param("batch", 11, None, id="batch"),
+    pytest.param("fixed", 11, None, id="fixed")])
+def test_msm_one_window_sum_a_call(monkeypatch, entry, n, chunk):
+    """Each entry point runs one window sum a call, on its slots' 2^c - 1
+    buckets (msm: a slot a window; msm_grouped and msm_batch: a window
+    of an MSM; msm_fixed: an MSM), and the fold adds G - 1 rows into each
+    slot: W (G - 1) rows for msm over G chunks, none for the others.
+    Each result equals golden's direct sum in affine form."""
     c = 4
-    W, G = -(-256 // c), -(-n // min(n, chunk))
     sums, adds = [], []
     real_ws, real_add = bucket.window_sum, ec.ec_add
 
@@ -102,14 +140,47 @@ def test_msm_one_window_sum_a_call(monkeypatch, n, chunk):
 
     def ec_add(p, q, counted_as="ec_add"):
         if counted_as == "bucket_fold":
-            adds.append(p[0].shape[1])
+            adds.append(p[0][0].numel() // p[0].shape[-1])
         return real_add(p, q, counted_as)
 
     monkeypatch.setattr(bucket, "window_sum", window_sum)
     monkeypatch.setattr(ec, "ec_add", ec_add)
-    pts, k, _, _ = _case(n, srs_points(), n + chunk)
-    got = pippenger_lm.msm(pts, k, c=c, point_chunk=chunk)
-    assert sums == [(24, W, (1 << c) - 1)]
-    assert sum(adds) == W * (G - 1)
-    want = _grouped_route(pts, k, chunk, c, G1_LM)
-    assert _same(G1_LM_PLAIN, got, want)
+    pts, k, idx, _ = _case(n, srs_points(), n + (chunk or 0))
+    got, slots, G, rows, spans = _entry(entry, pts, k, chunk, c)
+    assert sums == [(24, slots, (1 << c) - 1)]
+    assert sum(adds) == (slots * (G - 1) if entry == "msm" else 0)
+    for p, ks, (s, e) in zip(got, rows, spans):
+        assert _same(G1_LM_PLAIN, p, _golden(idx[s:e], FR.to_int(ks)))
+
+
+def test_msm_passes_end_inside_slots(monkeypatch):
+    """TPUKZG_MSM_WINDOW_CHUNK=3: passes of three rows end inside the
+    slots' list (msm_batch's 3 W rows, a window's three MSMs cut across
+    passes; msm_fixed's 4 rows, a pass of 3 then one of 1) and inside
+    msm's slots of G = 4 chunks (a slot's rows split over two passes,
+    whole slots in others); each result equals golden's direct sum in
+    affine form."""
+    monkeypatch.setenv("TPUKZG_MSM_WINDOW_CHUNK", "3")
+    c, n = 4, 11
+    passes = []
+    real_scan = bucket.seg_scan
+
+    def seg_scan(pts, seg):
+        passes.append(seg.shape[0])
+        return real_scan(pts, seg)
+
+    monkeypatch.setattr(bucket, "seg_scan", seg_scan)
+    pts, k, idx, _ = _case(n, srs_points(), 0x5117)
+    rows = torch.stack([k, k.roll(1, 0), k.flip(0), k.roll(5, 0)])
+    ints = [FR.to_int(r) for r in rows]
+    batch = pippenger_lm.msm_batch(pts, rows[:3], c)
+    fixed = pippenger_lm.msm_fixed(pippenger_lm.build_fixed_table(pts, c),
+                                   rows, c)
+    one = pippenger_lm.msm(pts, k, c=c, point_chunk=3)
+    W = -(-256 // c)
+    assert passes == ([3] * W + [3, 1] + [3] * (4 * W // 3) + [1])
+    for out, m in ((batch, 3), (fixed, 4)):
+        for i in range(m):
+            assert _same(G1_LM_PLAIN, tuple(x[i] for x in out),
+                         _golden(idx, ints[i]))
+    assert _same(G1_LM_PLAIN, one, _golden(idx, ints[0]))
